@@ -8,20 +8,36 @@ Phases, in order; any failure ends the script with a non-zero exit code:
   1. the card (nvidia-smi name and power limit) and the build of every
      CUDA kernel from src/repro_torch/csrc (one nvcc per source, started
      together, into the git-ignored build/);
-  2. one program run of full-width 224 px MobileNetV2 with every kernel
+  2. MobileNetV2, full width, 224 px: one program run with every kernel
      wrapper's arguments recorded, then a phase per kernel body at exactly
      those shapes: each call's kernel output must equal its plain PyTorch
      version bit for bit (int8 codes and f32 logits; the kernels are built
      with --fmad=false and round like torch), and the kernel, its plain
      version and a library yardstick are timed;
-  3. the slice end to end: seeded weights, one calibration batch of 4,
+  3. MobileNetV2 served: seeded weights, one calibration batch of 4,
      CNNServeEngine(paper_engine(backend="cuda"), wave_size=4) answering 8
      requests through pump() + flush(), with every launch counter zeroed
      just before and read just after; the logits must equal a
      backend="ref" run of the same program on the card, bit for bit; then
      the trace served 10 times more for steady images/s and latency, and
      one wave profiled (wall, host enqueue, device time per kernel);
-  4. one JSON line with every kernel's launches, error and times, then the
+  4. ResNet50, full width, 224 px, on the same engine: the kernel phases of
+     its Low-Channel max-pool tail and residual pooled GEMM (timed), and a
+     bitwise check of every other kernel call at its shapes; then served
+     like MobileNetV2 (counters 1/37/15/1 per program run), steady trace
+     and wave profile;
+  5. ResNet50 unfused (compile_calibrated(fuse=False), same weights and
+     calibration batch), run through compiler.execute on the card with the
+     counters zeroed around it (1/53/16 per run): its logits must equal the
+     fused program's served logits and the backend="ref" run bit for bit;
+     the misc_add kernel phase at its shapes;
+  6. avgpool2d, which no model path reaches: ops.avgpool2d on the CUDA
+     backend at [4,56,56,256] 3/2 and [4,7,7,2048] 7/1, counted, then its
+     kernel phase;
+  7. a zoo sweep: every CNN_ZOO model at 64 px, batch 2, fused and
+     unfused on one calibration, on the CUDA backend against
+     backend="ref" on the card and unfused against fused, bit for bit;
+  8. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -42,6 +58,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12     # float32 outside the tensor cores
 REPS = 20
 TRIALS = 10          # repeats of the 8-request trace for steady numbers
 
@@ -57,9 +74,31 @@ KERNELS = {
             "src/repro/kernels/dwc_pe.py:40"),
     "conv_pe_pool": ("src/repro_torch/csrc/conv_pe.cu",
                      "src/repro/kernels/conv_pe.py:311"),
+    "low_channel_max": ("src/repro_torch/csrc/low_channel.cu",
+                        "src/repro/kernels/low_channel.py:33"),
+    "conv_pe_pool_res": ("src/repro_torch/csrc/conv_pe.cu",
+                         "src/repro/kernels/conv_pe.py:311"),
+    "misc_add": ("src/repro_torch/csrc/misc_pe.cu",
+                 "src/repro/kernels/misc_pe.py:22"),
+    "avgpool2d": ("src/repro_torch/csrc/misc_pe.cu",
+                  "src/repro/kernels/misc_pe.py:62"),
 }
-PER_RUN = {"low_channel": 1, "conv_pe": 25, "conv_pe_res": 10, "dwc": 17,
-           "conv_pe_pool": 1}
+# launches per program run of each path
+PER_RUN = {
+    "mobilenetv2": {"low_channel": 1, "conv_pe": 25, "conv_pe_res": 10,
+                    "dwc": 17, "conv_pe_pool": 1},
+    "resnet50": {"low_channel_max": 1, "conv_pe": 37, "conv_pe_res": 15,
+                 "conv_pe_pool_res": 1},
+    "resnet50_unfused": {"low_channel": 1, "conv_pe": 53, "misc_add": 16},
+}
+# the kernels each path's phase times, at that path's shapes
+TIMED = {"mobilenetv2": ("low_channel", "conv_pe", "conv_pe_res", "dwc",
+                         "conv_pe_pool"),
+         "resnet50": ("low_channel_max", "conv_pe_pool_res"),
+         "resnet50_unfused": ("misc_add",)}
+# standalone avgpool2d shapes: (x shape, window, stride)
+AVGPOOL = (((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1))
+SWEEP_HW, SWEEP_BATCH = 64, 2
 
 
 def log(*a):
@@ -107,14 +146,18 @@ def cuda_ms(torch, fn, reps: int = REPS):
     end.record()
     end.synchronize()
     wall = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(device_us(prof).values()) / 1e3 / reps
-    if dev <= 0:
-        fail("torch.profiler reported no device time")
-    return dev, wall
+    # torch.profiler now and then hands back a trace without the device
+    # events of a short window; such a trace is taken again, not used
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = sum(device_us(prof).values()) / 1e3 / reps
+        if dev > 0:
+            return dev, wall
+        log("torch.profiler reported no device time; profiling again")
+    fail("torch.profiler reported no device time in three traces")
 
 
 def _tensors(args, kwargs):
@@ -127,19 +170,28 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def call_ops(name: str, args, kwargs, out) -> float:
-    """Multiply-adds x 2 of one call, from its operand shapes."""
+def call_ops(name: str, args, kwargs, out):
+    """(operations, the card's peak rate for their type) of one call, from
+    its operand shapes: int8 multiply-adds x 2 for the engines, f32 flops
+    for the MISC core."""
+    if name == "misc_add":
+        return 3.0 * out.numel(), PEAK_F32     # two multiplies and an add
+    if name == "avgpool2d":
+        return (args[1] ** 2 + 1.0) * out.numel(), PEAK_F32   # adds, divide
     a, w = args[0], args[1]
     if name in ("conv_pe", "conv_pe_res"):
         m, k = a.shape
-        return 2.0 * m * k * w.shape[1]
-    if name == "conv_pe_pool":
+        return 2.0 * m * k * w.shape[1], PEAK_INT8
+    if name.startswith("conv_pe_pool"):
         g, rows, k = a.shape
-        return 2.0 * g * rows * k * w.shape[1]
+        return 2.0 * g * rows * k * w.shape[1], PEAK_INT8
     if name == "dwc":
-        return 2.0 * out.numel() * w.shape[0] * w.shape[1]
-    k, _, ic, _ = w.shape                     # low_channel
-    return 2.0 * out.numel() * k * k * ic
+        return 2.0 * out.numel() * w.shape[0] * w.shape[1], PEAK_INT8
+    k, _, ic, oc = w.shape                    # low_channel(_max): every
+    n, hp, wp, _ = a.shape                    # conv output, pooled or not
+    stride = args[3]
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    return 2.0 * n * ho * wo * oc * k * k * ic, PEAK_INT8
 
 
 # ---------------------------------------------------------------------------
@@ -149,8 +201,9 @@ def call_ops(name: str, args, kwargs, out) -> float:
 def library_fn(torch, name: str, kern, args, kwargs):
     """One library product call (cuBLAS int8 GEMM through torch._int_mm, or
     cuDNN's convolution on exact float32 copies of the int8 operands) plus
-    the same epilogue in torch ops, on inputs prepared outside the timing.
-    """
+    the same epilogue in torch ops (F.max_pool2d for the stem's max tail),
+    or F.avg_pool2d, on inputs prepared outside the timing; None where no
+    PyTorch call computes the function."""
     import torch.nn.functional as F
     from repro_torch.core.quant import qdq_codes
     from repro_torch.kernels import _epilogue
@@ -159,6 +212,11 @@ def library_fn(torch, name: str, kern, args, kwargs):
     p = inspect.signature(kern).bind(*args, **kwargs)
     p.apply_defaults()
     p = p.arguments
+    if name == "misc_add":
+        return None       # no one PyTorch call scales, adds and requantizes
+    if name == "avgpool2d":
+        xf = p["x"].to(torch.float32).permute(0, 3, 1, 2)  # channels_last
+        return lambda: F.avg_pool2d(xf, p["window"], p["stride"])
 
     def epilogue(acc, a_scale, w_scale, bias, act, out_scale):
         x = acc.to(torch.float32) * a_scale * w_scale
@@ -190,9 +248,14 @@ def library_fn(torch, name: str, kern, args, kwargs):
                     x, mid_scale=p["mid_scale"], residual=p["residual"],
                     res_scale=p["res_scale"], add_act=p["add_act"],
                     out_scale=p["out_scale"])
+            res = p["residual"]
             return _epilogue.fused_chain(
                 x.reshape(rows[0], rows[1], 1, -1), mid_scale=p["mid_scale"],
-                pool="global", out_scale=p["out_scale"])
+                residual=None if res is None else res.reshape(
+                    rows[0], rows[1], 1, -1),
+                res_scale=p["res_scale"], add_act=p["add_act"],
+                add_scale=p["add_scale"], pool="global",
+                out_scale=p["out_scale"])
         return run
 
     x, w = p["x"], p["w"]
@@ -209,8 +272,17 @@ def library_fn(torch, name: str, kern, args, kwargs):
     def run():
         # |acc| <= k*k*IC*127^2 < 2^24: the float32 sums are exact integers
         acc = F.conv2d(xf, wf, stride=p["stride"], groups=groups)
-        return epilogue(acc.permute(0, 2, 3, 1), p["a_scale"], p["w_scale"],
-                        p["bias"], p["act"], p["out_scale"])
+        if name != "low_channel_max":
+            return epilogue(acc.permute(0, 2, 3, 1), p["a_scale"],
+                            p["w_scale"], p["bias"], p["act"],
+                            p["out_scale"])
+        y = epilogue(acc.permute(0, 2, 3, 1), p["a_scale"], p["w_scale"],
+                     p["bias"], p["act"], None)
+        if p["mid_scale"] is not None:
+            y = qdq_codes(y, p["mid_scale"])
+        y = F.max_pool2d(y.permute(0, 3, 1, 2), p["pool_kernel"],
+                         p["pool_stride"]).permute(0, 2, 3, 1)
+        return y if p["mid_scale"] is None else y.to(torch.int8)
     return run
 
 
@@ -226,33 +298,64 @@ def card_line() -> str:
     return out[0]
 
 
-def capture_calls(torch, engine, name, images):
-    """Run one wave through the engine with every kernel wrapper recording
-    its arguments (the shapes the main path gives each kernel)."""
-    from repro_torch.kernels import conv_pe, dwc_pe, low_channel
+def _wrappers():
+    """{kernel name: (wrapper, plain version)}."""
+    from repro_torch.kernels import conv_pe, dwc_pe, low_channel, misc_pe
+    return {
+        "conv_pe": (conv_pe.matmul_int8_fused,
+                    conv_pe.matmul_int8_fused_plain),
+        "conv_pe_res": (conv_pe.matmul_int8_fused,
+                        conv_pe.matmul_int8_fused_plain),
+        "conv_pe_pool": (conv_pe.matmul_int8_pool,
+                         conv_pe.matmul_int8_pool_plain),
+        "conv_pe_pool_res": (conv_pe.matmul_int8_pool,
+                             conv_pe.matmul_int8_pool_plain),
+        "dwc": (dwc_pe.dwc2d, dwc_pe.dwc2d_plain),
+        "low_channel": (low_channel.low_channel_conv,
+                        low_channel.low_channel_conv_plain),
+        "low_channel_max": (low_channel.low_channel_conv,
+                            low_channel.low_channel_conv_plain),
+        "misc_add": (misc_pe.misc_add, misc_pe.misc_add_plain),
+        "avgpool2d": (misc_pe.avgpool2d, misc_pe.avgpool2d_plain),
+    }
+
+
+def capture_calls(torch, run):
+    """Call `run()` with every kernel wrapper recording its arguments (the
+    shapes the main path gives each kernel), keyed by the counter name the
+    wrapper launches under."""
+    from repro_torch.kernels import conv_pe, dwc_pe, low_channel, misc_pe
     calls = {k: [] for k in KERNELS}
     patched = [(conv_pe, "matmul_int8_fused"), (conv_pe, "matmul_int8_pool"),
-               (dwc_pe, "dwc2d"), (low_channel, "low_channel_conv")]
+               (dwc_pe, "dwc2d"), (low_channel, "low_channel_conv"),
+               (misc_pe, "misc_add"), (misc_pe, "avgpool2d")]
     saved = {(m, f): getattr(m, f) for m, f in patched}
+
+    def key_of(fn, kwargs):
+        if fn == "matmul_int8_fused":
+            return ("conv_pe_res" if kwargs.get("residual") is not None
+                    else "conv_pe")
+        if fn == "matmul_int8_pool":
+            return ("conv_pe_pool_res" if kwargs.get("residual") is not None
+                    else "conv_pe_pool")
+        if fn == "low_channel_conv":
+            return ("low_channel_max" if kwargs.get("pool", "none") == "max"
+                    else "low_channel")
+        return {"dwc2d": "dwc", "misc_add": "misc_add",
+                "avgpool2d": "avgpool2d"}[fn]
 
     def recorder(mod, fn):
         orig = saved[(mod, fn)]
 
         def rec(*args, **kwargs):
-            if fn == "matmul_int8_fused":
-                key = ("conv_pe_res" if kwargs.get("residual") is not None
-                       else "conv_pe")
-            else:
-                key = {"matmul_int8_pool": "conv_pe_pool", "dwc2d": "dwc",
-                       "low_channel_conv": "low_channel"}[fn]
-            calls[key].append((args, kwargs))
+            calls[key_of(fn, kwargs)].append((args, kwargs))
             return orig(*args, **kwargs)
         return rec
 
     try:
         for mod, fn in patched:
             setattr(mod, fn, recorder(mod, fn))
-        engine.infer(name, images)
+        run()
     finally:
         for (mod, fn), orig in saved.items():
             setattr(mod, fn, orig)
@@ -260,21 +363,12 @@ def capture_calls(torch, engine, name, images):
     return calls
 
 
-def kernel_phase(torch, name, calls):
-    """Each recorded call: kernel vs its plain version (bitwise), then the
-    per-program-run times of the kernel, the plain version and the library
-    yardstick, and the bound from the calls' bytes and operations."""
-    from repro_torch.kernels import conv_pe, dwc_pe, low_channel
-    kern = {"conv_pe": conv_pe.matmul_int8_fused,
-            "conv_pe_res": conv_pe.matmul_int8_fused,
-            "conv_pe_pool": conv_pe.matmul_int8_pool,
-            "dwc": dwc_pe.dwc2d,
-            "low_channel": low_channel.low_channel_conv}[name]
-    plain = {"conv_pe": conv_pe.matmul_int8_fused_plain,
-             "conv_pe_res": conv_pe.matmul_int8_fused_plain,
-             "conv_pe_pool": conv_pe.matmul_int8_pool_plain,
-             "dwc": dwc_pe.dwc2d_plain,
-             "low_channel": low_channel.low_channel_conv_plain}[name]
+def kernel_phase(torch, name, calls, timed: bool = True):
+    """Each recorded call: kernel vs its plain version (bitwise); when
+    `timed`, then the per-program-run times of the kernel, the plain
+    version and the library yardstick, and the bound from the calls' bytes
+    and operations."""
+    kern, plain = _wrappers()[name]
     if not calls:
         fail(f"{name}: the main path gave this kernel no call")
     max_err, bytes_s, ops_s, bound = 0.0, 0.0, 0.0, 0.0
@@ -294,10 +388,14 @@ def kernel_phase(torch, name, calls):
                  f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
         t_bytes = (sum(_nbytes(t) for t in _tensors(args, kwargs))
                    + _nbytes(got)) / PEAK_BYTES
-        t_ops = call_ops(name, args, kwargs, got) / PEAK_INT8
+        ops, peak = call_ops(name, args, kwargs, got)
+        t_ops = ops / peak
         bytes_s += t_bytes
         ops_s += t_ops
         bound += max(t_bytes, t_ops)
+    result = {"max_abs_err": max_err, "calls_per_run": len(calls)}
+    if not timed:
+        return result
 
     def run_all(fn):
         return lambda: [fn(*a, **k) for a, k in calls]
@@ -305,12 +403,23 @@ def kernel_phase(torch, name, calls):
     ms, wall_ms = cuda_ms(torch, run_all(kern))
     plain_ms, _ = cuda_ms(torch, run_all(plain))
     libs = [library_fn(torch, name, kern, a, k) for a, k in calls]
-    library_ms, _ = cuda_ms(torch, lambda: [f() for f in libs])
-    return {"max_abs_err": max_err, "ms": ms, "wall_ms": wall_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": library_ms, "calls_per_run": len(calls)}
+    library_ms = (None if None in libs else
+                  cuda_ms(torch, lambda: [f() for f in libs])[0])
+    result.update({"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound * 1e3,
+                   "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                   "library_ms": library_ms})
+    return result
+
+
+def log_kernel(name, r):
+    lib = ("null" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f}")
+    log(f"kernel {name}: {r['calls_per_run']} calls/run, bitwise equal "
+        f"to plain (max_abs_err {r['max_abs_err']}), per program run: "
+        f"kernel_ms {r['ms']:.4f} (device; {r['wall_ms']:.4f} wall) "
+        f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
 def steady_serving(torch, engine, name, images):
@@ -350,12 +459,262 @@ def profile_wave(torch, engine, name, images):
         run(qparams, buf)
         enqueue.append((time.perf_counter() - t0) * 1e6)
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.infer(name, images)
-        torch.cuda.synchronize()
-    return (float(np.median(walls)), float(np.median(enqueue)),
-            device_us(prof))
+    for _ in range(3):          # an empty trace is taken again, as above
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.infer(name, images)
+            torch.cuda.synchronize()
+        per = device_us(prof)
+        if sum(per.values()) > 0:
+            break
+        log("torch.profiler reported no device time; profiling again")
+    return float(np.median(walls)), float(np.median(enqueue)), per
+
+
+def check_counts(label: str, counts: dict, runs: int):
+    """Every kernel of the path launched its count per program run, and no
+    other kernel launched."""
+    want = PER_RUN[label]
+    for name, per in want.items():
+        got = counts.get(name, 0)
+        if got == 0 or got != per * runs:
+            fail(f"{label}: {name}: {got} launches over {runs} program "
+                 f"runs, want {per} per run")
+    extra = sorted(set(counts) - set(want))
+    if extra:
+        fail(f"{label}: launches of kernels off its path: {extra}")
+
+
+def check_logits(np, logits, want, shape, what: str):
+    if logits.shape != shape:
+        fail(f"logits shape {logits.shape}, want {shape}")
+    if not np.isfinite(logits).all():
+        fail("non-finite logits")
+    if not np.array_equal(logits, want):
+        fail(f"logits differ from {what}: max abs "
+             f"{np.abs(logits - want).max()}")
+
+
+def serve_trace(torch, engine, cfg, images):
+    """The main path: the requests through submit / pump / flush, with the
+    launch counters zeroed just before and read just after.  Returns the
+    logits in submission order, the counts and the program runs."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve.base import LatencyTracker
+    engine.latency = LatencyTracker()
+    execs0 = engine.wave_stats.program_execs
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    served = {}
+    tickets = []
+    for img in images:
+        tickets.append(engine.submit(cfg.name, img))
+        served.update(engine.pump())
+    rest = engine.flush()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.COUNTS)
+    runs = engine.wave_stats.program_execs - execs0
+    if len(served) != len(images) or rest:
+        fail(f"served {len(served)} of {len(images)} through pump(), "
+             f"{len(rest)} left for flush()")
+    check_counts(cfg.name, counts, runs)
+    lat = engine.latency.percentiles()
+    log(f"serve {cfg.name}: {len(images)} requests in {wall:.4f} s = "
+        f"{len(images) / wall:.2f} images/s, p50 {lat['p50_ms']:.3f} ms, "
+        f"p99 {lat['p99_ms']:.3f} ms, {runs} program runs, launches "
+        f"{json.dumps(counts, sort_keys=True)}")
+    return np.stack([served[t] for t in tickets]), counts
+
+
+def serve_model(torch, engine, cfg, images, ref_eng, results):
+    """One model on the main path: its kernel phases at the shapes one
+    program run gives them (timed for the kernels TIMED names, checked
+    bitwise for the rest), the served trace against backend="ref", then
+    the steady trace and one profiled wave.  Returns the served logits and
+    the launch counts."""
+    import numpy as np
+    from repro_torch import compiler
+    t0 = time.perf_counter()
+    program = engine.program_for(cfg.name)
+    torch.cuda.synchronize()
+    stats = compiler.fusion_stats(program.graph)
+    log(f"{cfg.name}: compile_calibrated {time.perf_counter() - t0:.2f} s, "
+        f"launches/program {stats['launches']}, fused adds "
+        f"{stats['fused_adds']}, fused pools {stats['fused_pools']}")
+
+    calls = capture_calls(torch, lambda: engine.infer(cfg.name, images[:4]))
+    for name in PER_RUN[cfg.name]:
+        timed = name in TIMED[cfg.name]
+        with torch.inference_mode():
+            r = kernel_phase(torch, name, calls[name], timed)
+        if timed:
+            results[name] = r
+            log_kernel(name, r)
+        else:
+            log(f"kernel {name} at {cfg.name} shapes: {r['calls_per_run']} "
+                f"calls/run, bitwise equal to plain (max_abs_err "
+                f"{r['max_abs_err']})")
+
+    logits, counts = serve_trace(torch, engine, cfg, images)
+    run, qparams = engine._executor_for(cfg.name)
+    ref_logits = compiler.execute(
+        program, qparams, torch.from_numpy(images).cuda(), ref_eng
+    ).cpu().numpy()
+    check_logits(np, logits, ref_logits, (len(images), cfg.num_classes),
+                 "the ref backend")
+    log(f"logits {cfg.name}: {logits.shape}, finite, bitwise equal to "
+        f"backend='ref' on the card (max |logit| "
+        f"{np.abs(logits).max():.4f})")
+
+    rate, lat = steady_serving(torch, engine, cfg.name, images)
+    log(f"serve steady {cfg.name}: {TRIALS} x {len(images)} requests, "
+        f"median {rate:.2f} images/s, p50 {lat['p50_ms']:.3f} ms, p99 "
+        f"{lat['p99_ms']:.3f} ms over {lat['n']} requests")
+    wall_us, enq_us, per = profile_wave(torch, engine, cfg.name, images[:4])
+    busy = sum(per.values())
+    if busy <= 0:
+        fail("torch.profiler reported no device time for a served wave")
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile {cfg.name}: one wave {wall_us:.1f} us wall (unprofiled "
+        f"median), host enqueue of its program run {enq_us:.1f} us, device "
+        f"busy {busy:.1f} us ({100 * busy / wall_us:.1f}%), idle "
+        f"{100 * (1 - busy / wall_us):.1f}%; top device time: "
+        + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top))
+    return logits, counts
+
+
+def unfused_path(torch, cfg, params, calib, images, eng, ref_eng,
+                 fused_logits, results):
+    """The unfused static program (residual adds on the MISC core) run on
+    the card in waves of 4 through compiler.execute, counted; its logits
+    must equal the fused program's and its backend="ref" run's."""
+    import numpy as np
+    from repro_torch import compiler
+    from repro_torch.core import engine as eng_lib
+    from repro_torch.kernels import _build
+    label = cfg.name + "_unfused"
+    t0 = time.perf_counter()
+    program = compiler.compile_calibrated(
+        cfg, params, [torch.from_numpy(calib).cuda()], fuse=False)
+    qparams = compiler.fold_weight_layouts(
+        program.graph, eng_lib.quantize_params(params, eng))
+    torch.cuda.synchronize()
+    log(f"{label}: compile_calibrated(fuse=False) "
+        f"{time.perf_counter() - t0:.2f} s, launches/program "
+        f"{compiler.launch_count(program.graph)}")
+    waves = [torch.from_numpy(images[i:i + 4]).cuda()
+             for i in range(0, len(images), 4)]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = [compiler.execute(program, qparams, w, eng) for w in waves]
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    check_counts(label, counts, len(waves))
+    logits = torch.cat(outs).cpu().numpy()
+    ref_logits = torch.cat([compiler.execute(program, qparams, w, ref_eng)
+                            for w in waves]).cpu().numpy()
+    shape = (len(images), cfg.num_classes)
+    check_logits(np, logits, ref_logits, shape, "the unfused ref backend")
+    check_logits(np, logits, fused_logits, shape, "the fused served logits")
+    log(f"logits {label}: {logits.shape}, launches "
+        f"{json.dumps(counts, sort_keys=True)} over {len(waves)} runs, "
+        f"bitwise equal to backend='ref' and to the fused program's served "
+        f"logits")
+    calls = capture_calls(
+        torch, lambda: compiler.execute(program, qparams, waves[0], eng))
+    for name in PER_RUN[label]:
+        timed = name in TIMED[label]
+        with torch.inference_mode():
+            r = kernel_phase(torch, name, calls[name], timed)
+        if timed:
+            results[name] = r
+            log_kernel(name, r)
+        else:
+            log(f"kernel {name} at {label} shapes: {r['calls_per_run']} "
+                f"calls/run, bitwise equal to plain")
+    return counts
+
+
+def avgpool_path(torch, eng, results):
+    """avgpool2d through its public entry point, ops.avgpool2d on the CUDA
+    backend, at the AVGPOOL shapes (f32 maps, as the dynamic executor gives
+    it), counted; then its kernel phase."""
+    import numpy as np
+    from repro_torch.kernels import _build, ops
+    rng = np.random.default_rng(2)
+    xs = [(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+           .cuda(), k, s) for shape, k, s in AVGPOOL]
+
+    def run():
+        return [ops.avgpool2d(x, k, s, eng) for x, k, s in xs]
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = run()
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    if counts != {"avgpool2d": len(AVGPOOL)}:
+        fail(f"avgpool2d: launches {counts}, want {len(AVGPOOL)}")
+    for o, (shape, k, s) in zip(outs, AVGPOOL):
+        n, h, w, c = shape
+        want = (n, (h - k) // s + 1, (w - k) // s + 1, c)
+        if tuple(o.shape) != want or not torch.isfinite(o).all():
+            fail(f"avgpool2d {shape} {k}/{s}: got {tuple(o.shape)}")
+    calls = capture_calls(torch, run)
+    with torch.inference_mode():
+        r = kernel_phase(torch, "avgpool2d", calls["avgpool2d"])
+    results["avgpool2d"] = r
+    log_kernel("avgpool2d", r)
+    return counts
+
+
+def zoo_sweep(torch, eng, ref_eng):
+    """Every zoo model at SWEEP_HW px and batch SWEEP_BATCH, fused and
+    unfused on one calibration: the CUDA backend against backend="ref" on
+    the card, and the unfused program against the fused, bit for bit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import compiler
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.core import engine as eng_lib
+    from repro_torch.kernels import _build
+    from repro_torch.models.cnn import cnn_schema
+    from repro_torch.models.params import init_params
+    rng = np.random.default_rng(3)
+    for name in sorted(CNN_ZOO):
+        cfg = dataclasses.replace(CNN_ZOO[name], input_hw=SWEEP_HW)
+        params = init_params(cnn_schema(cfg),
+                             torch.Generator().manual_seed(0), device="cuda")
+        shape = (SWEEP_BATCH, SWEEP_HW, SWEEP_HW, 3)
+        calib = torch.from_numpy(
+            (rng.normal(size=shape) * 0.5).astype(np.float32)).cuda()
+        x = torch.from_numpy(
+            (rng.normal(size=shape) * 0.5).astype(np.float32)).cuda()
+        scales = compiler.calibrate(compiler.build_graph(cfg), params,
+                                    [calib], cfg)
+        qp = eng_lib.quantize_params(params, eng)
+        logits, counts = [], []
+        for fuse in (True, False):
+            program = compiler.compile_cnn(cfg, scales=scales, fuse=fuse)
+            qparams = compiler.fold_weight_layouts(program.graph, qp)
+            torch.cuda.synchronize()
+            _build.reset_counts()
+            got = compiler.execute(program, qparams, x, eng)
+            torch.cuda.synchronize()
+            counts.append(dict(_build.COUNTS))
+            want = compiler.execute(program, qparams, x, ref_eng)
+            logits.append(got.cpu().numpy())
+            check_logits(np, logits[-1], want.cpu().numpy(),
+                         (SWEEP_BATCH, cfg.num_classes),
+                         f"{name}'s ref backend (fuse={fuse})")
+        check_logits(np, logits[1], logits[0],
+                     (SWEEP_BATCH, cfg.num_classes), f"{name} fused")
+        log(f"sweep {name} @{SWEEP_HW}px: fused and unfused bitwise equal "
+            f"to backend='ref' and to each other; launches fused "
+            f"{json.dumps(counts[0], sort_keys=True)}, unfused "
+            f"{json.dumps(counts[1], sort_keys=True)}")
 
 
 def main() -> int:
@@ -375,11 +734,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.models.cnn import cnn_schema
     from repro_torch.models.params import init_params
-    from repro_torch.serve.base import LatencyTracker
     from repro_torch.serve.cnn_engine import CNNServeEngine
-    from repro_torch import compiler
 
     # -- 1. the card and the build -------------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -389,7 +747,16 @@ def main() -> int:
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(p.name for p in libs.values())})")
 
-    # -- model, weights, calibration -----------------------------------------
+    eng = eng_lib.paper_engine(backend="cuda")
+    ref_eng = EngineConfig(quant="w8a8", backend="ref")
+    engine = CNNServeEngine(eng, wave_size=4)
+    results, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- 2-3. MobileNetV2: kernel phases, then served ------------------------
     cfg = CNN_ZOO["mobilenetv2"]
     params = init_params(cnn_schema(cfg), torch.Generator().manual_seed(0),
                          device="cuda")
@@ -397,96 +764,41 @@ def main() -> int:
     hw = cfg.input_hw
     calib = (rng.normal(size=(4, hw, hw, 3)) * 0.5).astype(np.float32)
     images = (rng.normal(size=(8, hw, hw, 3)) * 0.5).astype(np.float32)
-    eng = eng_lib.paper_engine(backend="cuda")
-    engine = CNNServeEngine(eng, wave_size=4)
     engine.register(cfg, params, calib_batches=[calib])
-    t0 = time.perf_counter()
-    program = engine.program_for(cfg.name)
-    torch.cuda.synchronize()
-    stats = compiler.fusion_stats(program.graph)
-    log(f"compile_calibrated: {time.perf_counter() - t0:.2f} s, "
-        f"launches/program {stats['launches']}, fused adds "
-        f"{stats['fused_adds']}, fused pools {stats['fused_pools']}")
+    add(serve_model(torch, engine, cfg, images, ref_eng, results)[1])
 
-    # -- 2. kernel phases at the main path's shapes --------------------------
-    calls = capture_calls(torch, engine, cfg.name, images[:4])
-    results = {}
-    for name in KERNELS:
-        with torch.inference_mode():
-            r = kernel_phase(torch, name, calls[name])
-        results[name] = r
-        log(f"kernel {name}: {r['calls_per_run']} calls/run, bitwise equal "
-            f"to plain (max_abs_err {r['max_abs_err']}), per program run: "
-            f"kernel_ms {r['ms']:.4f} (device; {r['wall_ms']:.4f} wall) "
-            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    # -- 4. ResNet50 fused, served --------------------------------------------
+    rcfg = CNN_ZOO["resnet50"]
+    rparams = init_params(cnn_schema(rcfg), torch.Generator().manual_seed(0),
+                          device="cuda")
+    rng = np.random.default_rng(1)
+    hw = rcfg.input_hw
+    rcalib = (rng.normal(size=(4, hw, hw, 3)) * 0.5).astype(np.float32)
+    rimages = (rng.normal(size=(8, hw, hw, 3)) * 0.5).astype(np.float32)
+    engine.register(rcfg, rparams, calib_batches=[rcalib])
+    rlogits, counts = serve_model(torch, engine, rcfg, rimages, ref_eng,
+                                  results)
+    add(counts)
 
-    # -- 3. the slice end to end ---------------------------------------------
-    engine.latency = LatencyTracker()
-    execs0 = engine.wave_stats.program_execs
-    torch.cuda.synchronize()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    served = {}
-    tickets = []
-    for img in images:
-        tickets.append(engine.submit(cfg.name, img))
-        served.update(engine.pump())
-    rest = engine.flush()
-    wall = time.perf_counter() - t0
-    counts = dict(_build.COUNTS)
-    runs = engine.wave_stats.program_execs - execs0
-    if len(served) != len(images) or rest:
-        fail(f"served {len(served)} of {len(images)} through pump(), "
-             f"{len(rest)} left for flush()")
-    logits = np.stack([served[t] for t in tickets])
-    for name, want in PER_RUN.items():
-        got = counts.get(name, 0)
-        if got == 0 or got != want * runs:
-            fail(f"{name}: {got} launches over {runs} program runs, "
-                 f"want {want} per run")
-    lat = engine.latency.percentiles()
-    log(f"serve: {len(images)} requests in {wall:.4f} s = "
-        f"{len(images) / wall:.2f} images/s, p50 {lat['p50_ms']:.3f} ms, "
-        f"p99 {lat['p99_ms']:.3f} ms, {runs} program runs, launches "
-        f"{json.dumps(counts, sort_keys=True)}")
+    # -- 5. ResNet50 unfused ----------------------------------------------------
+    add(unfused_path(torch, rcfg, rparams, rcalib, rimages, eng, ref_eng,
+                     rlogits, results))
 
-    run, qparams = engine._executor_for(cfg.name)
-    ref_eng = EngineConfig(quant="w8a8", backend="ref")
-    ref_logits = compiler.execute(
-        program, qparams, torch.from_numpy(images).cuda(), ref_eng
-    ).cpu().numpy()
-    if logits.shape != (len(images), cfg.num_classes):
-        fail(f"logits shape {logits.shape}")
-    if not np.isfinite(logits).all():
-        fail("non-finite logits")
-    if not np.array_equal(logits, ref_logits):
-        fail(f"cuda logits differ from the ref backend: max abs "
-             f"{np.abs(logits - ref_logits).max()}")
-    log(f"logits: {logits.shape}, finite, bitwise equal to backend='ref' "
-        f"on the card (max |logit| {np.abs(logits).max():.4f})")
+    # -- 6. avgpool2d through ops ---------------------------------------------
+    add(avgpool_path(torch, eng, results))
 
-    rate, lat = steady_serving(torch, engine, cfg.name, images)
-    log(f"serve steady: {TRIALS} x {len(images)} requests, median "
-        f"{rate:.2f} images/s, p50 {lat['p50_ms']:.3f} ms, p99 "
-        f"{lat['p99_ms']:.3f} ms over {lat['n']} requests")
-    wall_us, enq_us, per = profile_wave(torch, engine, cfg.name, images[:4])
-    busy = sum(per.values())
-    if busy <= 0:
-        fail("torch.profiler reported no device time for a served wave")
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile: one wave {wall_us:.1f} us wall (unprofiled median), "
-        f"host enqueue of its program run {enq_us:.1f} us, device busy "
-        f"{busy:.1f} us ({100 * busy / wall_us:.1f}%), idle "
-        f"{100 * (1 - busy / wall_us):.1f}%; top device time: "
-        + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top))
+    # -- 7. the zoo sweep -------------------------------------------------------
+    zoo_sweep(torch, eng, ref_eng)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 4. the result lines -------------------------------------------------
+    # -- 8. the result lines ---------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
+        if not launches.get(name):
+            fail(f"{name}: no launch on the main path")
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -24,15 +24,16 @@ from repro_torch.compiler.schedule import (Schedule, level_schedule,
 
 
 def compile_calibrated(cfg, params, batches, eng=None,
-                       scheduled: bool = True) -> Program:
+                       scheduled: bool = True, fuse: bool = True) -> Program:
     """Float params + representative batches -> static int8 engine program.
 
     Calibration observes the UNFUSED graph (its edges are what the scales
-    describe); compile_cnn then rewrites epilogue chains into fused
+    describe); `fuse` (default on) then rewrites epilogue chains into fused
     launches, remapping the scales onto the fused graph and baking the
-    absorbed interior edges' scales into the Epilogue specs."""
+    absorbed interior edges' scales into the Epilogue specs.  fuse=False
+    maps the same scales onto the one-op-per-launch graph."""
     scales = calibrate(build_graph(cfg), params, batches, cfg, eng=eng)
-    return compile_cnn(cfg, scales=scales, scheduled=scheduled)
+    return compile_cnn(cfg, scales=scales, scheduled=scheduled, fuse=fuse)
 
 
 __all__ = [

@@ -55,17 +55,22 @@ class Program:
 
 
 def compile_cnn(cfg: CNNConfig, scales: Optional[Dict[int, float]] = None,
-                scheduled: bool = True) -> Program:
-    """Lower a CNNConfig to an epilogue-fused engine program.
+                scheduled: bool = True, fuse: bool = True) -> Program:
+    """Lower a CNNConfig to an engine program.
 
-    passes.fuse_epilogues collapses Conv/DWC -> {residual add, pool} chains
-    into single launches.  Without `scales` the program executes
-    dynamically; with calibrated per-edge scales (keyed by the UNFUSED
-    graph's node ids, which is what calibration observes, and remapped onto
-    the fused graph) the requant-folding pass produces the static int8
-    plan.  The program carries the ASAP level schedule; `scheduled=False`
-    dispatches in raw topological order (the same values)."""
-    g, scales = passes_lib.fuse_epilogues(build_graph(cfg), scales)
+    `fuse` (default on) runs passes.fuse_epilogues, which collapses
+    Conv/DWC -> {residual add, pool} chains into single launches;
+    fuse=False keeps the one-op-per-launch graph (residual adds on the
+    MISC core), the fused-vs-unfused parity baseline.  Without `scales` the
+    program executes dynamically; with calibrated per-edge scales (keyed by
+    the UNFUSED graph's node ids, which is what calibration observes, and
+    remapped onto the fused graph) the requant-folding pass produces the
+    static int8 plan.  The program carries the ASAP level schedule;
+    `scheduled=False` dispatches in raw topological order (the same
+    values)."""
+    g = build_graph(cfg)
+    if fuse:
+        g, scales = passes_lib.fuse_epilogues(g, scales)
     plan = fold_requant(g, scales) if scales is not None else None
     sched = level_schedule(g) if scheduled else None
     return Program(g, cfg, plan, sched)

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/conv_pe.py:
 //   _kernel (:37) and _kernel_res (:69) of matmul_int8_fused   -> conv_pe_gemm
-//   _kernel_pool (:311) of matmul_int8_pool                     -> conv_pe_pool
+//   _kernel_pool (:311) of matmul_int8_pool, with and without its
+//   residual operand (has_res)                                 -> conv_pe_pool
 //
 // What bounds it on the H100: the 1x1 convolutions of MobileNetV2 have
 // K = 16..960, so a 64x64 output tile does 2*64*64*K int8 ops per
@@ -121,15 +122,19 @@ gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
 }
 
 // Pooled epilogue: grid (N / PN, G); block = PN columns x PG row groups.
+// HAS_RES: the bottleneck's shortcut R [G, rows, N] int8 is added before
+// the pool (qdq at mid_scale, + r * res_scale, add_act, qdq at add_scale).
 constexpr int PN = 64, PG = 4, PR = 16, PKC = 64;
 constexpr int PROWS = PG * PR;  // rows staged per pass
 
+template <bool HAS_RES>
 __global__ void __launch_bounds__(PN * PG)
 pool_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
             void* __restrict__ C, int rows, int N, int K, float a_scale,
             const float* __restrict__ w_scale,
             const float* __restrict__ bias, int act, float mid_scale,
-            float gap_scale, int out_int8, float os_val) {
+            const int8_t* __restrict__ R, float res_scale, int add_act,
+            float add_scale, float gap_scale, int out_int8, float os_val) {
   __shared__ __align__(16) int8_t As[PROWS][PKC + 4];
   __shared__ int part[PG][PN];
   const int tx = threadIdx.x % PN, ty = threadIdx.x / PN;
@@ -169,10 +174,20 @@ pool_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     if (n < N) {
 #pragma unroll
       for (int i = 0; i < PR; ++i) {
-        if (r0 + ty + PG * i >= rows) break;
+        const int row = r0 + ty + PG * i;
+        if (row >= rows) break;
         const float x = dequant_bias_act(acc[i], a_scale, w_scale[n], bias,
                                          n, act);
-        total += static_cast<int>(qdq_code(x, mid_scale));
+        float code = qdq_code(x, mid_scale);
+        if (HAS_RES) {
+          const float r = static_cast<float>(
+              R[((size_t)g * rows + row) * N + n]);
+          const float y = apply_act(
+              __fadd_rn(__fmul_rn(code, mid_scale), __fmul_rn(r, res_scale)),
+              add_act);
+          code = qdq_code(y, add_scale);
+        }
+        total += static_cast<int>(code);
       }
     }
   }
@@ -218,17 +233,29 @@ extern "C" int conv_pe_gemm(const void* A, const void* B, void* C, int M,
 
 // C[G, N] = global-pool(qdq(epilogue(A[g] @ B))) per image g, static chain:
 // codes at mid_scale, int32 sum over the rows, times gap_scale (the host's
-// mid_scale / rows rounded once to f32), requant at os_val when out_int8.
+// pre-pool scale / rows rounded once to f32), requant at os_val when
+// out_int8.  With R [G, rows, N] int8 (else nullptr) the residual add runs
+// first and the pre-pool scale is add_scale.
 extern "C" int conv_pe_pool(const void* A, const void* B, void* C, int G,
                             int rows, int N, int K, float a_scale,
                             const void* w_scale, const void* bias, int act,
-                            float mid_scale, float gap_scale, int out_int8,
-                            float os_val, void* stream) {
+                            float mid_scale, const void* R, float res_scale,
+                            int add_act, float add_scale, float gap_scale,
+                            int out_int8, float os_val, void* stream) {
   const dim3 grid((N + PN - 1) / PN, G);
-  pool_kernel<<<grid, PN * PG, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(A), static_cast<const int8_t*>(B), C, rows,
-      N, K, a_scale, static_cast<const float*>(w_scale),
-      static_cast<const float*>(bias), act, mid_scale, gap_scale, out_int8,
-      os_val);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const int8_t*>(A);
+  const auto* b = static_cast<const int8_t*>(B);
+  const auto* ws = static_cast<const float*>(w_scale);
+  const auto* bs = static_cast<const float*>(bias);
+  const auto* r = static_cast<const int8_t*>(R);
+  if (R != nullptr)
+    pool_kernel<true><<<grid, PN * PG, 0, s>>>(
+        a, b, C, rows, N, K, a_scale, ws, bs, act, mid_scale, r, res_scale,
+        add_act, add_scale, gap_scale, out_int8, os_val);
+  else
+    pool_kernel<false><<<grid, PN * PG, 0, s>>>(
+        a, b, C, rows, N, K, a_scale, ws, bs, act, mid_scale, r, res_scale,
+        add_act, add_scale, gap_scale, out_int8, os_val);
   return static_cast<int>(cudaGetLastError());
 }

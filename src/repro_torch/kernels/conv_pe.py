@@ -8,7 +8,8 @@ PyTorch version:
     (:69): the 1x1 convolutions and the classifier head, the residual
     variant carrying every fused conv -> add.
   * `matmul_int8_pool` -- replaces `_kernel_pool` (:311): the GEMM whose
-    static global-pool tail is reduced in the kernel.
+    static global-pool tail is reduced in the kernel, with or without the
+    bottleneck's residual operand (`has_res`: ResNet's last block).
 
 Bound on the H100 and the design's answer: see the note at the top of
 csrc/conv_pe.cu (bytes-bound 1x1 GEMMs; K loop inside the block, epilogue
@@ -38,7 +39,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  _I, _V, _F, _V, _I, _F, _I, _F, _I, _V]
     lib.conv_pe_gemm.restype = _I
     lib.conv_pe_pool.argtypes = [_V, _V, _V, _I, _I, _I, _I, _F, _V, _V, _I,
-                                 _F, _F, _I, _F, _V]
+                                 _F, _V, _F, _I, _F, _F, _I, _F, _V]
     lib.conv_pe_pool.restype = _I
 
 
@@ -140,23 +141,33 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
 # matmul_int8_pool (_kernel_pool): static global-pool tail
 # ---------------------------------------------------------------------------
 
-def gap_scale(mid_scale: float, rows: int) -> float:
-    """The GAP tail's scale: mid_scale / rows in double, rounded once to f32
-    where it is used (the reference's `cur / px`)."""
-    return mid_scale / rows
+def gap_scale(pre_scale: float, rows: int) -> float:
+    """The GAP tail's scale: the pre-pool edge scale / rows in double,
+    rounded once to f32 where it is used (the reference's `cur / px`)."""
+    return pre_scale / rows
 
 
 def matmul_int8_pool_plain(a_q, b_q, a_scale: float, w_scale, bias,
                            act: str, *, mid_scale: float,
-                           out_scale: Optional[float] = None) -> torch.Tensor:
+                           out_scale: Optional[float] = None,
+                           residual: Optional[torch.Tensor] = None,
+                           res_scale: float = 1.0, add_act: str = "none",
+                           add_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: per-image GEMM rows -> epilogue -> codes at mid_scale
-    -> int32 sum over the rows -> * (mid_scale / rows) -> requant."""
+    [-> * mid_scale + residual * res_scale -> add_act -> codes at
+    add_scale] -> int32 sum over the rows -> * (pre-pool scale / rows) ->
+    requant."""
     g, rows, k = a_q.shape
     x = ref.matmul_int8_fused(a_q.reshape(g * rows, k), b_q, a_scale,
                               w_scale, bias, act)
-    codes = qdq_codes(x, mid_scale).to(torch.int32).reshape(g, rows, -1)
+    codes, pre = qdq_codes(x, mid_scale), mid_scale
+    if residual is not None:
+        r = mul(residual.reshape(g * rows, -1).to(torch.float32), res_scale)
+        y = ref.act_fn(add_act)(mul(codes, mid_scale) + r)
+        codes, pre = qdq_codes(y, add_scale), add_scale
+    codes = codes.to(torch.int32).reshape(g, rows, -1)
     y = mul(codes.sum(dim=1, dtype=torch.int32).to(torch.float32),
-            gap_scale(mid_scale, rows))
+            gap_scale(pre, rows))
     if out_scale is not None:
         return qdq_codes(y, out_scale).to(torch.int8)
     return y
@@ -165,17 +176,23 @@ def matmul_int8_pool_plain(a_q, b_q, a_scale: float, w_scale, bias,
 def matmul_int8_pool(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: float,
                      w_scale: torch.Tensor, bias: Optional[torch.Tensor],
                      act: str, *, mid_scale: float,
-                     out_scale: Optional[float] = None) -> torch.Tensor:
+                     out_scale: Optional[float] = None,
+                     residual: Optional[torch.Tensor] = None,
+                     res_scale: float = 1.0, add_act: str = "none",
+                     add_scale: Optional[float] = None) -> torch.Tensor:
     """Fused GEMM + static global-pool tail, one launch.
 
     a_q int8 [G, rows, K]: each image's ho*wo im2col rows; b_q int8 [K, N];
     a_scale the static per-tensor activation scale; mid_scale the absorbed
-    conv edge's scale.  Returns [G, N], int8 when out_scale is given.  The
-    pre-pool [G, rows, N] map is never written."""
+    conv edge's scale.  residual int8 [G, rows, N] (the shortcut, at
+    res_scale) selects the residual variant, whose absorbed add edge is at
+    add_scale.  Returns [G, N], int8 when out_scale is given.  The pre-pool
+    [G, rows, N] map is never written."""
     if not a_q.is_cuda:
-        return matmul_int8_pool_plain(a_q, b_q, a_scale, w_scale, bias, act,
-                                      mid_scale=mid_scale,
-                                      out_scale=out_scale)
+        return matmul_int8_pool_plain(
+            a_q, b_q, a_scale, w_scale, bias, act, mid_scale=mid_scale,
+            out_scale=out_scale, residual=residual, res_scale=res_scale,
+            add_act=add_act, add_scale=add_scale)
     g, rows, k = a_q.shape
     n = b_q.shape[1]
     require(a_q, "a_q", torch.int8)
@@ -183,16 +200,24 @@ def matmul_int8_pool(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: float,
     wsc = require(w_scale.reshape(n), "w_scale", torch.float32)
     if bias is not None:
         require(bias, "bias", torch.float32, (n,))
+    pre = mid_scale
+    if residual is not None:
+        require(residual, "residual", torch.int8, (g, rows, n))
+        if add_scale is None:
+            raise ValueError("the residual pooled tail needs add_scale")
+        pre = add_scale
     out = torch.empty((g, n), device=a_q.device,
                       dtype=torch.int8 if out_scale is not None
                       else torch.float32)
     err = _lib().conv_pe_pool(
         a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), g, rows, n, k,
         float(a_scale), wsc.data_ptr(), ptr(bias), _build.act_code(act),
-        float(mid_scale), gap_scale(mid_scale, rows),
+        float(mid_scale), ptr(residual), float(res_scale),
+        _build.act_code(add_act), float(pre), gap_scale(pre, rows),
         int(out_scale is not None),
         float(out_scale) if out_scale is not None else 1.0,
         _build.stream_ptr(a_q))
-    _build.check(err, "conv_pe_pool")
-    _build.count("conv_pe_pool")
+    name = "conv_pe_pool" if residual is None else "conv_pe_pool_res"
+    _build.check(err, name)
+    _build.count(name)
     return out

@@ -4,17 +4,17 @@ Two backends (EngineConfig.backend):
   * "ref"  -- plain PyTorch (kernels/ref.py + the _epilogue chain): the
               calibration path and the bit-exact reference;
   * "cuda" -- the hand-written Hopper kernels (conv_pe, dwc_pe,
-              low_channel), whose wrappers launch on CUDA tensors and run
-              their plain versions on CPU tensors.
+              low_channel, misc_pe), whose wrappers launch on CUDA tensors
+              and run their plain versions on CPU tensors.
 
 The reference's TPU block picker (`pick_blocks`, sized from a model of
 VMEM) and its M/N/K and 128-lane padding have no counterpart: the CUDA
 kernels choose their own tiles and mask ragged edges.  SAME padding and the
 im2col (K ordered (kh, kw, ic), matching `w.reshape(k*k*IC, OC)`) stay here,
-in NHWC.  Fused epilogues the CUDA backend does not carry yet (DWC and
-Low-Channel tails, residual / avg / max pooled tails, MISC adds and avg
-pools) raise NotImplementedError on that backend; they arrive with the
-slices that need them.
+in NHWC.  Fused epilogues that no zoo model reaches have no CUDA kernel
+yet and raise NotImplementedError on that backend: DWC tails, the
+Low-Channel avg / global tails, avg / max pooled GEMM tails and dynamic
+(f32) pooled GEMM chains.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.quant import QTensor, f32, quantize_act_dynamic
-from repro_torch.kernels import _epilogue, conv_pe, dwc_pe, low_channel, ref
+from repro_torch.kernels import (_epilogue, conv_pe, dwc_pe, low_channel,
+                                misc_pe, ref)
 
 
 def _chain_kwargs(ep, static: bool, out_scale):
@@ -44,9 +45,10 @@ def _kernels(cfg: EngineConfig) -> bool:
     return cfg.backend == "cuda"
 
 
-def _slice_1b(what: str):
+def _no_kernel(what: str):
     return NotImplementedError(
-        f"{what} has no CUDA kernel in this slice; run backend='ref'")
+        f"{what} has no CUDA kernel (no zoo model reaches it); run "
+        "backend='ref'")
 
 
 # ---------------------------------------------------------------------------
@@ -230,14 +232,18 @@ def _conv_epilogue(col_in, wt: QTensor, bias, act: str, ep, residual,
                      res_scale=res_scale, mid_scale=mid, add_act=ep.add_act)
         return out.reshape(n, ho, wo, oc)
     if _kernels(cfg):
-        if (ep.pool != "global" or residual is not None or mid is None
+        if (ep.pool != "global" or mid is None
                 or not isinstance(out_scale, (int, float, type(None)))):
-            raise _slice_1b(f"the pooled epilogue {ep.stages!r} "
-                            f"({'static' if static else 'dynamic'})")
+            raise _no_kernel(f"the pooled epilogue {ep.stages!r} "
+                             f"({'static' if static else 'dynamic'})")
         kdim = col_in.q.shape[-1]
         return conv_pe.matmul_int8_pool(
             col_in.q.reshape(n, ho * wo, kdim), wt.q, float(col_in.scale),
-            wt.scale, bias, act, mid_scale=mid, out_scale=out_scale)
+            wt.scale, bias, act, mid_scale=mid, out_scale=out_scale,
+            residual=(None if residual is None
+                      else residual.reshape(n, ho * wo, oc)),
+            res_scale=res_scale, add_act=ep.add_act,
+            add_scale=ep.add_scale)
     # ref: the GEMM part (f32, pre-requant) + the shared chain math
     y = linear(col_in, wt, bias, act, cfg, out_dtype=torch.float32)
     return _epilogue.fused_chain(y.reshape(n, ho, wo, oc),
@@ -285,7 +291,7 @@ def dwc2d(x, w, bias: Optional[torch.Tensor], stride: int, padding: str,
         xin = pad_same(xin, k, stride)
     if epilogue is not None:
         if _kernels(cfg):
-            raise _slice_1b(f"the DWC epilogue {epilogue.stages!r}")
+            raise _no_kernel(f"the DWC epilogue {epilogue.stages!r}")
         y = ref.dwc2d(xin, w_in, bias, stride, act, a_scale=a_scale,
                       w_scale=w_scale, out_dtype=torch.float32)
         return _epilogue.fused_chain(y, residual=residual,
@@ -309,7 +315,8 @@ def first_layer_conv(x, w, bias: Optional[torch.Tensor], stride: int,
     """Stage-0 conv on the Low-Channel unit.  x may be a QTensor (the
     compiled program quantizes the image with its static scale); out_scale
     requants the stem output to int8.  `epilogue` fuses an absorbed pool
-    tail (ref backend); residual adds never fuse into the stem."""
+    tail (on the CUDA backend the max tail; avg / global raise); residual
+    adds never fuse into the stem."""
     if epilogue is not None and epilogue.add:
         raise ValueError("the Low-Channel unit fuses pool tails only")
     static, quant, xin, a_scale, w_in, w_scale = _int8_operands(x, w, cfg)
@@ -317,13 +324,17 @@ def first_layer_conv(x, w, bias: Optional[torch.Tensor], stride: int,
     if padding == "SAME":
         xin = pad_same(xin, k, stride)
     if epilogue is not None:
+        kw = _chain_kwargs(epilogue, static, out_scale)
         if _kernels(cfg):
-            raise _slice_1b(f"the Low-Channel pool tail {epilogue.stages!r}")
+            return low_channel.low_channel_conv(
+                xin.contiguous(), w_in, bias, stride, act,
+                a_scale=float(a_scale), w_scale=w_scale, pool=kw["pool"],
+                pool_kernel=kw["pool_kernel"], pool_stride=kw["pool_stride"],
+                mid_scale=kw["mid_scale"])
         y = ref.low_channel_conv(xin, w_in, bias, stride, act,
                                  a_scale=a_scale, w_scale=w_scale,
                                  out_dtype=torch.float32)
-        return _epilogue.fused_chain(y, **_chain_kwargs(epilogue, static,
-                                                        out_scale))
+        return _epilogue.fused_chain(y, **kw)
     if _kernels(cfg):
         return low_channel.low_channel_conv(
             xin.contiguous(), w_in, bias, stride, act, a_scale=float(a_scale),
@@ -334,7 +345,7 @@ def first_layer_conv(x, w, bias: Optional[torch.Tensor], stride: int,
 
 
 # ---------------------------------------------------------------------------
-# MISC core (plain ops; their kernels come with slice 1b)
+# MISC core
 # ---------------------------------------------------------------------------
 
 def misc_add(a: torch.Tensor, b: torch.Tensor, act: str, cfg: EngineConfig,
@@ -343,13 +354,15 @@ def misc_add(a: torch.Tensor, b: torch.Tensor, act: str, cfg: EngineConfig,
     """Residual add; in a static program a/b are int8 at scales sa/sb and
     out_scale requants the sum."""
     if _kernels(cfg):
-        raise _slice_1b("misc_add")
+        return misc_pe.misc_add(a, b, sa, sb, act, out_scale=out_scale,
+                                out_dtype=out_dtype)
     return ref.misc_add(a, b, sa, sb, act, out_scale=out_scale,
                         out_dtype=out_dtype)
 
 
 def avgpool2d(x: torch.Tensor, window: int, stride: int, cfg: EngineConfig,
               out_dtype=torch.float32) -> torch.Tensor:
+    """[N, H, W, C] VALID average pool, f32 out."""
     if _kernels(cfg):
-        raise _slice_1b("avgpool2d")
+        return misc_pe.avgpool2d(x, window, stride, out_dtype=out_dtype)
     return ref.avgpool2d(x, window, stride, out_dtype=out_dtype)

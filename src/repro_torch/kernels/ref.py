@@ -150,7 +150,7 @@ def low_channel_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# C6: MISC core -- elementwise / pooling (plain ops; kernels in slice 1b)
+# C6: MISC core -- elementwise / pooling
 # ---------------------------------------------------------------------------
 
 def misc_add(a: torch.Tensor, b: torch.Tensor, sa: Scale = 1.0,

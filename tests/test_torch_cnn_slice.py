@@ -37,6 +37,8 @@ from repro_torch.core import engine as t_eng
 from repro_torch.core.config import ConvSpec as TSpec
 from repro_torch.core.config import EngineConfig as TEng
 from repro_torch.core.quant import QTensor as TQ
+from repro_torch.models.cnn import cnn_schema
+from repro_torch.models.params import init_params
 
 ZOO = sorted(J_ZOO)
 
@@ -153,6 +155,32 @@ def test_level_schedule_matches(name, policy):
     ts = tc.level_schedule(tg, policy)
     tc.validate_schedule(tg, ts)
     assert ts.levels == jc.level_schedule(jg, policy).levels
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_static_programs_run_on_cuda_dispatch(name):
+    """Every zoo model at 32 px, port only: the fused and the fuse=False
+    static programs run through the CUDA backend's dispatch (each kernel
+    wrapper's plain version on CPU tensors, so no tail the zoo reaches is
+    left without a kernel) and equal the ref backend and each other bit
+    for bit."""
+    cfg = dataclasses.replace(T_ZOO[name], input_hw=32)
+    params = init_params(cnn_schema(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    x = torch.from_numpy(
+        (np.random.default_rng(1).normal(size=(1, 32, 32, 3)) * 0.5
+         ).astype(np.float32))
+    scales = tc.calibrate(tc.build_graph(cfg), params, [x], cfg)
+    qp = t_eng.quantize_params(params, t_eng.paper_engine(backend="ref"))
+    outs = []
+    for fuse in (True, False):
+        prog = tc.compile_cnn(cfg, scales=scales, fuse=fuse)
+        folded = tc.fold_weight_layouts(prog.graph, qp)
+        for backend in ("ref", "cuda"):
+            outs.append(tc.execute(prog, folded, x,
+                                   TEng(quant="w8a8", backend=backend)))
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 # ---------------------------------------------------------------------------

@@ -6,13 +6,14 @@ at import).  On the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
-stride 2); every output must equal the plain version bit for bit.
+stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
+counts); every output must equal the plain version bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, conv_pe, dwc_pe, low_channel
+from repro_torch.kernels import _build, conv_pe, dwc_pe, low_channel, misc_pe
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +80,21 @@ def test_conv_pe_pool(dev, g, rows, k, n):
                                           **kw))
 
 
+@pytest.mark.parametrize("g,rows,k,n", [(4, 49, 512, 2048), (3, 70, 40, 70)])
+def test_conv_pe_pool_residual(dev, g, rows, k, n):
+    rng = np.random.default_rng(g * rows + 1)
+    a, b = _q(rng, (g, rows, k), dev), _q(rng, (k, n), dev)
+    wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
+    kw = dict(mid_scale=0.0713, out_scale=0.0377, residual=_q(
+        rng, (g, rows, n), dev), res_scale=0.049, add_act="relu",
+        add_scale=0.0811)
+    before = _build.COUNTS.get("conv_pe_pool_res", 0)
+    got = conv_pe.matmul_int8_pool(a, b, 0.0191, wsc, bias, "none", **kw)
+    assert _build.COUNTS["conv_pe_pool_res"] == before + 1
+    _check(got, conv_pe.matmul_int8_pool_plain(a, b, 0.0191, wsc, bias,
+                                               "none", **kw))
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("c", [40, 96])
 def test_dwc(dev, stride, c):
@@ -99,6 +115,50 @@ def test_low_channel(dev):
            low_channel.low_channel_conv_plain(x, w, bias, 2, "relu", **kw))
 
 
+@pytest.mark.parametrize("hw,k,oc,pk,ps,mid", [
+    (229, 7, 64, 3, 2, 0.061),     # ResNet50's stem: 112 -> 55
+    (37, 3, 40, 3, 2, 0.061),      # ragged tiles, OC off the block
+    (21, 3, 24, 2, 2, None)])      # dynamic chain: f32 max
+def test_low_channel_max_tail(dev, hw, k, oc, pk, ps, mid):
+    rng = np.random.default_rng(hw + oc)
+    x, w = _q(rng, (2, hw, hw, 3), dev), _q(rng, (k, k, 3, oc), dev)
+    wsc, bias = _f(rng, (oc,), dev), _f(rng, (oc,), dev, -1.0, 1.0)
+    kw = dict(a_scale=0.0117, w_scale=wsc, pool="max", pool_kernel=pk,
+              pool_stride=ps, mid_scale=mid)
+    before = _build.COUNTS.get("low_channel_max", 0)
+    got = low_channel.low_channel_conv(x, w, bias, 2, "relu", **kw)
+    assert _build.COUNTS["low_channel_max"] == before + 1
+    _check(got, low_channel.low_channel_conv_plain(x, w, bias, 2, "relu",
+                                                   **kw))
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 7, 2048), (3, 5, 7, 11), (1001,)])
+@pytest.mark.parametrize("dtype,out_scale", [(torch.int8, 0.0437),
+                                             (torch.float32, None)])
+def test_misc_add(dev, shape, dtype, out_scale):
+    rng = np.random.default_rng(len(shape) + int(out_scale is None))
+    if dtype == torch.int8:
+        a, b = _q(rng, shape, dev), _q(rng, shape, dev)
+    else:
+        a, b = _f(rng, shape, dev, -2.0, 2.0), _f(rng, shape, dev, -2.0, 2.0)
+    kw = dict(sa=0.0311, sb=0.0529, act="relu", out_scale=out_scale)
+    before = _build.COUNTS.get("misc_add", 0)
+    got = misc_pe.misc_add(a, b, **kw)
+    assert _build.COUNTS["misc_add"] == before + 1
+    _check(got, misc_pe.misc_add_plain(a, b, **kw))
+
+
+@pytest.mark.parametrize("shape,window,stride", [
+    ((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1), ((2, 9, 10, 3), 2, 2)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_avgpool2d(dev, shape, window, stride, dtype):
+    rng = np.random.default_rng(window * 10 + stride)
+    x = (_q(rng, shape, dev) if dtype == torch.int8
+         else _f(rng, shape, dev, -3.0, 3.0))
+    _check(misc_pe.avgpool2d(x, window, stride),
+           misc_pe.avgpool2d_plain(x, window, stride))
+
+
 def test_wrapper_rejects_bad_operands(dev):
     rng = np.random.default_rng(0)
     a = _q(rng, (8, 16), dev)
@@ -108,3 +168,40 @@ def test_wrapper_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         conv_pe.matmul_int8_fused(a.float(), _q(rng, (16, 8), dev), 1.0,
                                   torch.ones(8, device=dev))
+    # the new wrappers: wrong dtype, non-contiguous operand
+    x = _q(rng, (2, 8, 8, 6), dev)
+    with pytest.raises(ValueError):
+        misc_pe.misc_add(x, x.float(), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        misc_pe.misc_add(x.to(torch.int32), x.to(torch.int32), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        misc_pe.misc_add(x.transpose(1, 2), x, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        misc_pe.avgpool2d(x.transpose(1, 2), 2, 2)
+    with pytest.raises(ValueError):
+        misc_pe.avgpool2d(x.to(torch.int16), 2, 2)
+    w = _q(rng, (3, 3, 3, 8), dev)
+    xs = _q(rng, (1, 9, 9, 3), dev)
+    with pytest.raises(ValueError):
+        low_channel.low_channel_conv(xs.float(), w, None, 2, "relu", 1.0,
+                                     torch.ones(8, device=dev), pool="max",
+                                     pool_kernel=3, pool_stride=2,
+                                     mid_scale=0.1)
+    with pytest.raises(ValueError):
+        low_channel.low_channel_conv(xs.transpose(1, 2), w, None, 2, "relu",
+                                     1.0, torch.ones(8, device=dev),
+                                     pool="max", pool_kernel=3,
+                                     pool_stride=2, mid_scale=0.1)
+    a3 = _q(rng, (2, 9, 16), dev)
+    with pytest.raises(ValueError):
+        conv_pe.matmul_int8_pool(a3, _q(rng, (16, 8), dev), 1.0,
+                                 torch.ones(8, device=dev), None, "none",
+                                 mid_scale=0.1, residual=_q(
+                                     rng, (2, 9, 8), dev).float(),
+                                 add_scale=0.1)
+    with pytest.raises(ValueError):
+        conv_pe.matmul_int8_pool(a3, _q(rng, (16, 8), dev), 1.0,
+                                 torch.ones(8, device=dev), None, "none",
+                                 mid_scale=0.1, residual=_q(
+                                     rng, (2, 8, 9), dev).transpose(1, 2),
+                                 add_scale=0.1)
