@@ -37,7 +37,21 @@ Phases, in order; any failure ends the script with a non-zero exit code:
   7. a zoo sweep: every CNN_ZOO model at 64 px, batch 2, fused and
      unfused on one calibration, on the CUDA backend against
      backend="ref" on the card and unfused against fused, bit for bit;
-  8. one JSON line with every kernel's launches, error and times, then the
+  8. qwen2-1.5b at full width (28 layers, d 1536, 12 / 2 heads of 128,
+     d_ff 8960, vocab 151936), seeded weights, calibrated on one [2, 64]
+     token batch, served by ServeEngine(quant="w4a8", backend="cuda",
+     kv_layout="paged", page_size=16, batch_size=4, max_seq=128,
+     prefill_len=64, decode_burst=4): the kernel phases of the int4 Conv PE
+     (plain and residual) and the paged gather at the shapes of one prefill
+     and one decode step (timed per decode step, and per prefill), then 8
+     requests of 16-64 prompt tokens and 32 new tokens each with the
+     counters zeroed around them (56 / 56 / 56 launches per decode step, 56
+     / 56 / 0 per prefill), the same trace 10 times more for steady
+     tokens/s and latency, and one profiled prefill and decode step; the
+     served ids must equal the backend="ref" engine's and the dense-KV
+     engine's; then the same trace under quant="w8a8" (int8 Conv PE), with
+     its int8 GEMMs timed at the LM's shapes, equal to its ref run;
+  9. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -82,6 +96,12 @@ KERNELS = {
                  "src/repro/kernels/misc_pe.py:22"),
     "avgpool2d": ("src/repro_torch/csrc/misc_pe.cu",
                   "src/repro/kernels/misc_pe.py:62"),
+    "conv_pe_w4": ("src/repro_torch/csrc/conv_pe_w4.cu",
+                   "src/repro/kernels/conv_pe.py:189"),
+    "conv_pe_w4_res": ("src/repro_torch/csrc/conv_pe_w4.cu",
+                       "src/repro/kernels/conv_pe.py:208"),
+    "paged_gather": ("src/repro_torch/csrc/paged_gather.cu",
+                     "src/repro/kernels/flash_attn.py:110"),
 }
 # launches per program run of each path
 PER_RUN = {
@@ -96,6 +116,17 @@ TIMED = {"mobilenetv2": ("low_channel", "conv_pe", "conv_pe_res", "dwc",
                          "conv_pe_pool"),
          "resnet50": ("low_channel_max", "conv_pe_pool_res"),
          "resnet50_unfused": ("misc_add",)}
+# the LM phase: launches per layer of one decode step and of one prefill
+LM = dict(arch="qwen2-1.5b", batch=4, max_seq=128, prefill_len=64,
+          burst=4, page=16, requests=8, new_tokens=32, calib=(2, 64),
+          prompt_lens=(16, 64))
+LM_PER_LAYER = {
+    "w4a8": {"decode": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
+                        "paged_gather": 2},
+             "prefill": {"conv_pe_w4": 2, "conv_pe_w4_res": 2}},
+    "w8a8": {"decode": {"conv_pe": 2, "conv_pe_res": 2, "paged_gather": 2},
+             "prefill": {"conv_pe": 2, "conv_pe_res": 2}},
+}
 # standalone avgpool2d shapes: (x shape, window, stride)
 AVGPOOL = (((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1))
 SWEEP_HW, SWEEP_BATCH = 64, 2
@@ -178,7 +209,12 @@ def call_ops(name: str, args, kwargs, out):
         return 3.0 * out.numel(), PEAK_F32     # two multiplies and an add
     if name == "avgpool2d":
         return (args[1] ** 2 + 1.0) * out.numel(), PEAK_F32   # adds, divide
+    if name == "paged_gather":
+        return 0.0, PEAK_INT8                  # a copy: bytes only
     a, w = args[0], args[1]
+    if name.startswith("conv_pe_w4"):
+        m, k = a.shape                         # int4 x int8 multiply-adds
+        return 2.0 * m * k * w.shape[1], PEAK_INT8
     if name in ("conv_pe", "conv_pe_res"):
         m, k = a.shape
         return 2.0 * m * k * w.shape[1], PEAK_INT8
@@ -214,6 +250,16 @@ def library_fn(torch, name: str, kern, args, kwargs):
     p = p.arguments
     if name == "misc_add":
         return None       # no one PyTorch call scales, adds and requantizes
+    if name.startswith("conv_pe_w4"):
+        return None       # no one PyTorch call unpacks int4 groups against
+                          # int8 rows with this epilogue
+    if name == "paged_gather":
+        pool, tables = p["pool"], p["tables"]
+        n, pg = pool.shape[0], pool.shape[1]
+        flat = (tables.to(torch.int64)[..., None] * pg
+                + torch.arange(pg, device=pool.device)).reshape(-1)
+        pf = pool.reshape((n * pg,) + tuple(pool.shape[2:]))
+        return lambda: torch.index_select(pf, 0, flat)
     if name == "avgpool2d":
         xf = p["x"].to(torch.float32).permute(0, 3, 1, 2)  # channels_last
         return lambda: F.avg_pool2d(xf, p["window"], p["stride"])
@@ -300,8 +346,15 @@ def card_line() -> str:
 
 def _wrappers():
     """{kernel name: (wrapper, plain version)}."""
-    from repro_torch.kernels import conv_pe, dwc_pe, low_channel, misc_pe
+    from repro_torch.kernels import (conv_pe, dwc_pe, flash_attn,
+                                     low_channel, misc_pe)
     return {
+        "conv_pe_w4": (conv_pe.matmul_int4_fused,
+                       conv_pe.matmul_int4_fused_plain),
+        "conv_pe_w4_res": (conv_pe.matmul_int4_fused,
+                           conv_pe.matmul_int4_fused_plain),
+        "paged_gather": (flash_attn.paged_gather,
+                         flash_attn.paged_gather_plain),
         "conv_pe": (conv_pe.matmul_int8_fused,
                     conv_pe.matmul_int8_fused_plain),
         "conv_pe_res": (conv_pe.matmul_int8_fused,
@@ -324,9 +377,11 @@ def capture_calls(torch, run):
     """Call `run()` with every kernel wrapper recording its arguments (the
     shapes the main path gives each kernel), keyed by the counter name the
     wrapper launches under."""
-    from repro_torch.kernels import conv_pe, dwc_pe, low_channel, misc_pe
+    from repro_torch.kernels import (conv_pe, dwc_pe, flash_attn,
+                                     low_channel, misc_pe)
     calls = {k: [] for k in KERNELS}
     patched = [(conv_pe, "matmul_int8_fused"), (conv_pe, "matmul_int8_pool"),
+               (conv_pe, "matmul_int4_fused"), (flash_attn, "paged_gather"),
                (dwc_pe, "dwc2d"), (low_channel, "low_channel_conv"),
                (misc_pe, "misc_add"), (misc_pe, "avgpool2d")]
     saved = {(m, f): getattr(m, f) for m, f in patched}
@@ -335,6 +390,9 @@ def capture_calls(torch, run):
         if fn == "matmul_int8_fused":
             return ("conv_pe_res" if kwargs.get("residual") is not None
                     else "conv_pe")
+        if fn == "matmul_int4_fused":
+            return ("conv_pe_w4_res" if kwargs.get("residual") is not None
+                    else "conv_pe_w4")
         if fn == "matmul_int8_pool":
             return ("conv_pe_pool_res" if kwargs.get("residual") is not None
                     else "conv_pe_pool")
@@ -342,7 +400,7 @@ def capture_calls(torch, run):
             return ("low_channel_max" if kwargs.get("pool", "none") == "max"
                     else "low_channel")
         return {"dwc2d": "dwc", "misc_add": "misc_add",
-                "avgpool2d": "avgpool2d"}[fn]
+                "avgpool2d": "avgpool2d", "paged_gather": "paged_gather"}[fn]
 
     def recorder(mod, fn):
         orig = saved[(mod, fn)]
@@ -363,7 +421,8 @@ def capture_calls(torch, run):
     return calls
 
 
-def kernel_phase(torch, name, calls, timed: bool = True):
+def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
+                 plain_reps: int = REPS):
     """Each recorded call: kernel vs its plain version (bitwise); when
     `timed`, then the per-program-run times of the kernel, the plain
     version and the library yardstick, and the bound from the calls' bytes
@@ -400,11 +459,11 @@ def kernel_phase(torch, name, calls, timed: bool = True):
     def run_all(fn):
         return lambda: [fn(*a, **k) for a, k in calls]
 
-    ms, wall_ms = cuda_ms(torch, run_all(kern))
-    plain_ms, _ = cuda_ms(torch, run_all(plain))
+    ms, wall_ms = cuda_ms(torch, run_all(kern), reps)
+    plain_ms, _ = cuda_ms(torch, run_all(plain), plain_reps)
     libs = [library_fn(torch, name, kern, a, k) for a, k in calls]
     library_ms = (None if None in libs else
-                  cuda_ms(torch, lambda: [f() for f in libs])[0])
+                  cuda_ms(torch, lambda: [f() for f in libs], reps)[0])
     result.update({"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
                    "bound_ms": bound * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations",
@@ -412,11 +471,11 @@ def kernel_phase(torch, name, calls, timed: bool = True):
     return result
 
 
-def log_kernel(name, r):
+def log_kernel(name, r, per="program run"):
     lib = ("null" if r["library_ms"] is None
            else f"{r['library_ms']:.4f}")
     log(f"kernel {name}: {r['calls_per_run']} calls/run, bitwise equal "
-        f"to plain (max_abs_err {r['max_abs_err']}), per program run: "
+        f"to plain (max_abs_err {r['max_abs_err']}), per {per}: "
         f"kernel_ms {r['ms']:.4f} (device; {r['wall_ms']:.4f} wall) "
         f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
         f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
@@ -717,6 +776,294 @@ def zoo_sweep(torch, eng, ref_eng):
             f"{json.dumps(counts[1], sort_keys=True)}")
 
 
+# ---------------------------------------------------------------------------
+# The LM path: qwen2-1.5b served by ServeEngine
+# ---------------------------------------------------------------------------
+
+def lm_inputs(arch):
+    """The calibration batch and the request trace (numpy seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    calib = rng.integers(0, arch.vocab_size, LM["calib"]).astype(np.int32)
+    lo, hi = LM["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, LM["requests"])
+    prompts = [rng.integers(0, arch.vocab_size, n).astype(np.int32)
+               for n in lens]
+    return calib, prompts
+
+
+def lm_engine(torch, arch, params, calib, quant, backend, layout):
+    """A ServeEngine of the LM path, its programs compiled (calibration
+    included) outside any clock."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    engine = ServeEngine(
+        arch, params, EngineConfig(quant=quant, backend=backend),
+        batch_size=LM["batch"], max_seq=LM["max_seq"],
+        calib_batches=[calib], prefill_len=LM["prefill_len"],
+        decode_burst=LM["burst"], kv_layout=layout, page_size=LM["page"])
+    t1 = time.perf_counter()
+    engine.prefill_program()
+    engine.decode_program()
+    torch.cuda.synchronize()
+    log(f"lm engine {quant}/{backend}/{layout}: quantize + calibration "
+        f"digest {t1 - t0:.2f} s (digest {engine.digest_s:.2f} s), "
+        f"calibrate + compile {time.perf_counter() - t1:.2f} s")
+    return engine
+
+
+def check_lm_counts(label, counts, per_layer, layers, prefills, steps):
+    """Each kernel launched its per-layer count for every prefill and
+    decode step of the run, and no other kernel launched."""
+    want = {}
+    for phase, runs in (("prefill", prefills), ("decode", steps)):
+        for name, per in per_layer[phase].items():
+            want[name] = want.get(name, 0) + per * layers * runs
+    for name, n in want.items():
+        if n == 0 or counts.get(name, 0) != n:
+            fail(f"{label}: {name}: {counts.get(name, 0)} launches over "
+                 f"{prefills} prefills and {steps} decode steps, want {n}")
+    extra = sorted(set(counts) - set(want))
+    if extra:
+        fail(f"{label}: launches of kernels off its path: {extra}")
+
+
+def lm_serve(torch, engine, prompts, label, per_layer=None):
+    """The trace through submit / run, with the launch counters zeroed just
+    before and read just after.  Returns the ids [requests, new tokens],
+    the counts and the tokens/s."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve.base import LatencyTracker
+    engine.latency = LatencyTracker()
+    p0 = engine.serve_stats.prefill_calls
+    d0 = engine.serve_stats.decode_steps
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(p, LM["new_tokens"]) for p in prompts]
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.COUNTS)
+    prefills = engine.serve_stats.prefill_calls - p0
+    steps = engine.serve_stats.decode_steps - d0
+    if not all(isinstance(t, int) for t in tickets):
+        fail(f"{label}: a request was rejected")
+    ids = np.stack([res[t] for t in tickets])
+    if ids.shape != (len(prompts), LM["new_tokens"]) or ids.min() < 0 \
+            or ids.max() >= engine.arch.vocab_size:
+        fail(f"{label}: ids of shape {ids.shape} in "
+             f"[{ids.min()}, {ids.max()}]")
+    if per_layer is not None:
+        check_lm_counts(label, counts, per_layer, engine.arch.n_layers,
+                        prefills, steps)
+    elif counts:
+        fail(f"{label}: the ref backend launched kernels: {counts}")
+    tps = ids.size / wall
+    lat = engine.latency.percentiles()
+    log(f"serve {label}: {len(prompts)} requests x {LM['new_tokens']} "
+        f"tokens in {wall:.4f} s = {tps:.2f} tokens/s, p50 "
+        f"{lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms, {prefills} "
+        f"prefills + {steps} decode steps, launches "
+        f"{json.dumps(counts, sort_keys=True)}")
+    return ids, counts, tps
+
+
+def lm_kernel_phases(torch, engine, prompts, names, results, label):
+    """Every kernel call of one prefill and one decode step (one request
+    per slot, one new token), each held bitwise against its plain version;
+    the decode step's calls timed (into `results` when given) and the
+    prefill's."""
+    calls = capture_calls(torch, lambda: engine.generate(
+        prompts[:LM["batch"]], max_new_tokens=1))
+    layers = engine.arch.n_layers
+    for name in names:
+        is_dec = [name == "paged_gather" or a[0].shape[0] == LM["batch"]
+                  for a, _ in calls[name]]
+        dec = [c for c, d in zip(calls[name], is_dec) if d]
+        pre = [c for c, d in zip(calls[name], is_dec) if not d]
+        want_pre = 0 if name == "paged_gather" else 2 * layers
+        if len(dec) != 2 * layers or len(pre) != want_pre:
+            fail(f"{label} {name}: {len(pre)} prefill and {len(dec)} decode "
+                 f"calls, want {want_pre} and {2 * layers}")
+        # the plain int4 GEMM runs its groups in sequence (thousands of
+        # launches a step), so it is timed over fewer repeats
+        with torch.inference_mode():
+            r = kernel_phase(torch, name, dec, plain_reps=3)
+        log_kernel(f"{name} ({label})", r, per="decode step")
+        if results is not None:
+            results[name] = r
+        if pre:
+            with torch.inference_mode():
+                r = kernel_phase(torch, name, pre, reps=5, plain_reps=2)
+            log_kernel(f"{name} ({label})", r, per="prefill")
+
+
+def lm_profile(torch, engine, prompts):
+    """Where a decode step's time goes: its wall time (median of 5, host
+    clock around a synchronized step), the host time to enqueue it, and
+    the device time per kernel (torch.profiler) of one step and of one
+    prefill, on a paged cache whose table holds every block."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    b, plen, dev = engine.batch, LM["prefill_len"], engine.device
+    toks = np.zeros((b, plen), np.int32)
+    for i, p in enumerate(prompts[:b]):
+        toks[i, plen - len(p):] = p
+    toks = torch.from_numpy(toks).to(dev)
+    mask = torch.ones(b, dtype=torch.bool, device=dev)
+    program = engine.prefill_program()
+
+    def fresh():
+        cache = engine._empty_cache()
+        cache["tables"] = torch.arange(
+            b * engine.kv_pages, dtype=torch.int32, device=dev).reshape(
+            b, engine.kv_pages)
+        logits, cache = engine._prefill_paged(program, cache, toks, mask)
+        return cache, torch.argmax(logits[:, -1], -1)[:, None].to(
+            torch.int32)
+
+    def traced(fn):
+        for _ in range(3):       # an empty trace is taken again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            per = device_us(prof)
+            if sum(per.values()) > 0:
+                return per
+            log("torch.profiler reported no device time; profiling again")
+        fail("torch.profiler reported no device time in three traces")
+
+    with torch.inference_mode():
+        cache, cur = fresh()
+        walls, enqueue = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine._decode_step(cache, cur)
+            enqueue.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e6)
+        if not torch.isfinite(logits).all():
+            fail("non-finite decode logits")
+        dec = traced(lambda: engine._decode_step(cache, cur))
+        pre = traced(fresh)
+    return (float(np.median(walls)), float(np.median(enqueue)), dec, pre)
+
+
+def lm_path(torch, results, add):
+    """qwen2-1.5b at full width on the LM serving path (phase 8)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    t0 = time.perf_counter()
+    arch = configs.get_arch(LM["arch"])
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaf_tensors(params))
+    log(f"lm {arch.name}: {arch.n_layers} layers, d {arch.d_model}, heads "
+        f"{arch.n_heads}/{arch.n_kv_heads} x {arch.head_dim}, d_ff "
+        f"{arch.d_ff}, vocab {arch.vocab_size}: {n} float params in "
+        f"{time.perf_counter() - t0:.2f} s")
+    calib, prompts = lm_inputs(arch)
+
+    # -- w4a8, CUDA, paged: the main path ------------------------------------
+    engine = lm_engine(torch, arch, params, calib, "w4a8", "cuda", "paged")
+    lm_kernel_phases(torch, engine, prompts,
+                     ("conv_pe_w4", "conv_pe_w4_res", "paged_gather"),
+                     results, "w4a8")
+    ids, counts, _ = lm_serve(torch, engine, prompts, "w4a8/cuda/paged",
+                              LM_PER_LAYER["w4a8"])
+    add(counts)
+    rates, lats = [], []
+    for _ in range(TRIALS):
+        engine.latency.samples_ms = []
+        rates.append(_steady_once(torch, engine, prompts))
+        lats.extend(engine.latency.samples_ms)
+    lat = np.asarray(lats)
+    log(f"serve steady w4a8/cuda/paged: {TRIALS} x {len(prompts)} requests, "
+        f"median {np.median(rates):.2f} tokens/s (min {min(rates):.2f}, max "
+        f"{max(rates):.2f}), p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms over {lat.size} requests")
+    wall, enq, dec, pre = lm_profile(torch, engine, prompts)
+    for what, per, ref_us in (("decode step", dec, wall),
+                              ("prefill", pre, None)):
+        busy = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        share = (f", wall {ref_us:.1f} us (median of 5), host enqueue "
+                 f"{enq:.1f} us, device busy {100 * busy / ref_us:.1f}%, "
+                 f"idle {100 * (1 - busy / ref_us):.1f}%"
+                 if ref_us else "")
+        log(f"profile lm {what}: device {busy:.1f} us{share}; top device "
+            f"time: " + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top))
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- the same trace on the ref backend and on the dense cache ------------
+    for backend, layout, what in (("ref", "paged", "backend='ref'"),
+                                  ("cuda", "dense", "the dense KV cache")):
+        other = lm_engine(torch, arch, params, calib, "w4a8", backend,
+                          layout)
+        got, counts, _ = lm_serve(
+            torch, other, prompts, f"w4a8/{backend}/{layout}",
+            None if backend == "ref" else
+            {"prefill": LM_PER_LAYER["w4a8"]["prefill"],
+             "decode": {"conv_pe_w4": 2, "conv_pe_w4_res": 2}})
+        if not np.array_equal(got, ids):
+            fail(f"w4a8 paged CUDA ids differ from {what}: "
+                 f"{int((got != ids).sum())} of {ids.size}")
+        log(f"ids w4a8: paged CUDA equal to {what} ({ids.size} tokens)")
+        del other
+        torch.cuda.empty_cache()
+
+    # -- w8a8: the int8 Conv PE at the LM's shapes ---------------------------
+    engine = lm_engine(torch, arch, params, calib, "w8a8", "cuda", "paged")
+    lm_kernel_phases(torch, engine, prompts, ("conv_pe", "conv_pe_res"),
+                     None, "w8a8 LM")
+    ids8, counts, _ = lm_serve(torch, engine, prompts, "w8a8/cuda/paged",
+                               LM_PER_LAYER["w8a8"])
+    add(counts)
+    del engine
+    torch.cuda.empty_cache()
+    other = lm_engine(torch, arch, params, calib, "w8a8", "ref", "paged")
+    got, _, _ = lm_serve(torch, other, prompts, "w8a8/ref/paged")
+    if not np.array_equal(got, ids8):
+        fail(f"w8a8 paged CUDA ids differ from backend='ref': "
+             f"{int((got != ids8).sum())} of {ids8.size}")
+    log(f"ids w8a8: paged CUDA equal to backend='ref' ({ids8.size} tokens); "
+        f"w4a8 and w8a8 agree on {int((ids8 == ids).sum())} of {ids.size}")
+    del other
+    torch.cuda.empty_cache()
+
+
+def _steady_once(torch, engine, prompts):
+    """One more pass of the trace, not counted: tokens/s."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        engine.submit(p, LM["new_tokens"])
+    engine.run()
+    torch.cuda.synchronize()
+    return len(prompts) * LM["new_tokens"] / (time.perf_counter() - t0)
+
+
+def _leaf_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaf_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaf_tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -789,9 +1136,12 @@ def main() -> int:
 
     # -- 7. the zoo sweep -------------------------------------------------------
     zoo_sweep(torch, eng, ref_eng)
+
+    # -- 8. qwen2-1.5b served ---------------------------------------------------
+    lm_path(torch, results, add)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 8. the result lines ---------------------------------------------------
+    # -- 9. the result lines ---------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

@@ -8,6 +8,7 @@ program in dynamic float mode (quant="none", backend="ref": plain torch
 ops, no kernels) with an observer hook, so the recorded ranges are exactly
 the tensors the engines will carry.
 
+LM graphs calibrate the same way (token batches, the unfused graph).
 Scales are plain Python floats keyed by node id: they become compile-time
 constants of the static program (arguments the kernels receive by value).
 Percentile and per-channel calibrators join with a later slice.
@@ -26,7 +27,8 @@ from repro_torch.core.quant import Calibrator
 
 def calibrate(graph: Graph, params, batches: Iterable[torch.Tensor], cfg,
               eng: Optional[EngineConfig] = None) -> Dict[int, float]:
-    """Run `batches` ([N, H, W, C] float images) through the float ref path
+    """Run `batches` (what the graph's InputOp consumes: [N, H, W, C] float
+    images, or [B, L] token ids for an LM graph) through the float ref path
     and return {node_id: running-absmax activation scale}.  `params` is the
     FLOAT tree: calibration measures the ranges quantized inference must
     reproduce."""

@@ -1,6 +1,6 @@
-"""Compiler passes, CNN half (the port's copy of repro.compiler.passes):
-requant folding, epilogue fusion, compile-time weight layouts, launch
-accounting.
+"""Compiler passes (the port's copy of repro.compiler.passes): requant
+folding, epilogue fusion, projection fusion, compile-time weight layouts,
+launch accounting.
 
 `fuse_epilogues` rewrites Conv/DWC -> {residual Add, pool tail} chains into
 single fused nodes (Epilogue spec), so the chain executes as ONE engine
@@ -16,8 +16,12 @@ Folding rules:
   * everything else requants in its producing engine's epilogue to its own
     calibrated scale.
 
-Per-channel scales (a tuple per edge) and the LM rewrites
-(fuse_projections, LinearOp residual tails) come with their slices.
+LM graphs: `fuse_projections` collapses each Q/K/V triple and gate/up pair
+into one multi-output launch, and `fuse_epilogues` folds the residual add
+after each O / down projection into its GEMM.  The LM's float-domain MISC
+work (norm input, attention, the gate product, the residual stream, the
+logits head) keeps f32 operands; every GEMM input is int8 at a static
+scale.  Per-channel scales (a tuple per edge) come with a later slice.
 """
 from __future__ import annotations
 
@@ -25,16 +29,26 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.compiler.graph import (AddOp, ConcatOp, ConvOp, DwcOp,
-                                        Epilogue, Graph, InputOp, LinearOp,
-                                        PoolOp, get_param)
+from repro_torch.compiler.graph import (AddOp, AttnOp, ConcatOp, ConvOp,
+                                        DwcOp, EmbedOp, Epilogue, Graph,
+                                        InputOp, LinearGroupOp, LinearOp,
+                                        MulOp, NormOp, PoolOp, ViewOp,
+                                        get_param)
 from repro_torch.core.quant import QTensor
 
 _MIN_SCALE = 1e-8
 
-# Op kinds that can emit int8 from their engine epilogue / consume it.
-_INT8_EMIT = (InputOp, ConvOp, DwcOp, AddOp, PoolOp, ConcatOp, LinearOp)
-_INT8_CONSUME = (ConvOp, DwcOp, LinearOp, AddOp, PoolOp, ConcatOp)
+# Op kinds that can emit int8 from their engine epilogue / consume it.  A
+# LinearGroupOp consumes its shared input int8 like its members, but its
+# tuple output feeds float-domain ops (attention, the gate product), so
+# neither the group nor its views emit int8.
+_INT8_EMIT = (InputOp, ConvOp, DwcOp, AddOp, PoolOp, ConcatOp, LinearOp,
+              NormOp, AttnOp, MulOp)
+_INT8_CONSUME = (ConvOp, DwcOp, LinearOp, LinearGroupOp, AddOp, PoolOp,
+                 ConcatOp)
+# The quantized-GEMM engines: an f32 edge into one of these would make the
+# engine re-quantize per call.
+_GEMM_OPS = (ConvOp, DwcOp, LinearOp, LinearGroupOp)
 
 
 @dataclass(frozen=True)
@@ -115,6 +129,9 @@ def fuse_epilogues(graph: Graph, scales: Optional[Dict[int, float]] = None):
                                        fused node's LAST input edge)
       Conv/Dwc -> Pool(avg|global|max)
       Conv/Dwc -> Add -> Pool(...)
+      Linear   -> Add                 (the LM residual adds after the O /
+                                       down projections; pool tails never
+                                       attach to a LinearOp)
 
     The fused node sits at the position of the chain's LAST op (so a
     residual operand lowered after the conv stays topologically earlier),
@@ -134,7 +151,8 @@ def fuse_epilogues(graph: Graph, scales: Optional[Dict[int, float]] = None):
     chains: Dict[int, Tuple] = {}
     absorbed: Dict[int, int] = {}        # interior old id -> chain end id
     for n in graph.nodes:
-        if not isinstance(n, (ConvOp, DwcOp)) or n.epilogue is not None:
+        if (not isinstance(n, (ConvOp, DwcOp, LinearOp))
+                or n.epilogue is not None):
             continue
         if n.id == graph.output or n.id in absorbed:
             continue
@@ -149,9 +167,11 @@ def fuse_epilogues(graph: Graph, scales: Optional[Dict[int, float]] = None):
             res_id = c.inputs[1] if c.inputs[0] == n.id else c.inputs[0]
             p = sole_consumer(c.id)
             if (isinstance(p, PoolOp) and p.pool in _FUSABLE_POOLS
-                    and p.id not in chains):
+                    and p.id not in chains
+                    and not isinstance(n, LinearOp)):
                 pool_id, end = p.id, p
-        elif isinstance(c, PoolOp) and c.pool in _FUSABLE_POOLS:
+        elif (isinstance(c, PoolOp) and c.pool in _FUSABLE_POOLS
+                and not isinstance(n, LinearOp)):
             pool_id, end = c.id, c
         else:
             continue
@@ -208,11 +228,87 @@ def fuse_epilogues(graph: Graph, scales: Optional[Dict[int, float]] = None):
     return fused, new_scales
 
 
+def fuse_projections(graph: Graph,
+                     scales: Optional[Dict[int, float]] = None):
+    """Collapse same-input LinearOp fan-outs into multi-output groups.
+
+    The Q/K/V projections of an attention block (and the gate/up pair of a
+    gated MLP) read the SAME normed activation and differ only in their
+    weight columns: each such fan-out -- member LinearOps sharing one input
+    edge, each consumed solely by one AttnOp / MulOp -- becomes one
+    LinearGroupOp (one Conv PE launch) plus a ViewOp per member.  `scales`
+    (keyed by the unfused ids) remap: each view inherits its member's edge
+    scale, the group node its first member's.  Deterministic, so the full
+    and decode graphs fuse identically.  Returns (graph, scales or None).
+    """
+    consumers = graph.consumers()
+    groups: List[Tuple[int, ...]] = []
+    grouped = set()
+    for n in graph.nodes:
+        if isinstance(n, AttnOp):
+            members = n.inputs[:3]
+        elif isinstance(n, MulOp) and len(n.inputs) == 2:
+            members = n.inputs
+        else:
+            continue
+        if len(set(members)) != len(members):
+            continue
+        if not all(isinstance(graph.nodes[m], LinearOp)
+                   and graph.nodes[m].epilogue is None
+                   and len(consumers[m]) == 1
+                   and m not in grouped for m in members):
+            continue
+        shared = {graph.nodes[m].inputs for m in members}
+        if len(shared) != 1 or len(next(iter(shared))) != 1:
+            continue
+        groups.append(tuple(members))
+        grouped.update(members)
+
+    if not groups:
+        return graph, scales
+
+    first_of = {min(g): g for g in groups}
+    member_of = {m for g in groups for m in g}
+    new_nodes: List = []
+    new_id: Dict[int, int] = {}
+    new_scales: Optional[Dict[int, float]] = {} if scales is not None else None
+    for n in graph.nodes:
+        if n.id in member_of:
+            if n.id not in first_of:
+                continue        # re-emitted as a view at the first member
+            g = first_of[n.id]
+            mems = [graph.nodes[m] for m in g]
+            gid = len(new_nodes)
+            new_nodes.append(LinearGroupOp(
+                id=gid, inputs=tuple(new_id[i] for i in mems[0].inputs),
+                ws=tuple(m.w for m in mems), bs=tuple(m.b for m in mems),
+                acts=tuple(m.act for m in mems)))
+            if new_scales is not None:
+                new_scales[gid] = scales[g[0]]
+            for idx, m in enumerate(g):
+                vid = len(new_nodes)
+                new_nodes.append(ViewOp(id=vid, inputs=(gid,), index=idx))
+                new_id[m] = vid
+                if new_scales is not None:
+                    new_scales[vid] = scales[m]
+            continue
+        nid = len(new_nodes)
+        new_nodes.append(dataclasses.replace(
+            n, id=nid, inputs=tuple(new_id[i] for i in n.inputs)))
+        new_id[n.id] = nid
+        if new_scales is not None:
+            new_scales[nid] = scales[n.id]
+    fused = Graph(tuple(new_nodes), output=new_id[graph.output],
+                  name=graph.name)
+    return fused, new_scales
+
+
 def launch_count(graph: Graph) -> int:
-    """Engine kernel dispatches one execution of the graph issues (input
-    DMA and the bank-interleave concat ride the load path)."""
+    """Engine kernel dispatches one execution of the graph issues.  Memory-
+    level ops (input DMA, bank-interleave concat, embedding row gather, a
+    group member view) ride the load path, not a launch."""
     return sum(1 for n in graph.nodes
-               if not isinstance(n, (InputOp, ConcatOp)))
+               if not isinstance(n, (InputOp, ConcatOp, EmbedOp, ViewOp)))
 
 
 def residual_chains(graph: Graph) -> List[Tuple[int, int]]:
@@ -242,10 +338,33 @@ def fusion_stats(graph: Graph) -> Dict[str, int]:
         "fused_ops": len(fused),
         "fused_adds": sum(1 for e in fused if e.add),
         "fused_pools": sum(1 for e in fused if e.pool != "none"),
+        "fused_projections": graph.count(LinearGroupOp),
+        "projection_members": sum(len(n.ws) for n in graph.nodes
+                                  if isinstance(n, LinearGroupOp)),
         "launches": launch_count(graph),
         # intermediate tensors one execution writes to memory
         "materialized_edges": sum(1 for n in graph.nodes if consumers[n.id]),
     }
+
+
+def f32_roundtrip_edges(graph: Graph, plan: QuantPlan
+                        ) -> List[Tuple[int, int]]:
+    """Edges that carry f32 into a quantized-GEMM engine under the plan (a
+    correct static plan has none; a fused residual operand is epilogue
+    math, not a GEMM operand)."""
+    bad = []
+    for n in graph.nodes:
+        if not isinstance(n, _GEMM_OPS):
+            continue
+        ins = n.inputs
+        ep = getattr(n, "epilogue", None)
+        if ep is not None and ep.add:
+            ins = ins[:-1]
+        for p in ins:
+            if not plan.emit_int8.get(p, False) and not isinstance(
+                    graph.nodes[p], InputOp):
+                bad.append((p, n.id))
+    return bad
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
-from repro_torch.compiler.graph import (AddOp, ConcatOp, ConvOp, DwcOp,
-                                        Graph, InputOp, LinearOp, OpNode,
-                                        PoolOp)
+from repro_torch.compiler.graph import (AddOp, AttnOp, ConcatOp, ConvOp,
+                                        DwcOp, EmbedOp, Graph, HeadOp,
+                                        InputOp, LinearGroupOp, LinearOp,
+                                        MulOp, NormOp, OpNode, PoolOp, ViewOp)
 
 CONV_PE = "conv_pe"
 DWC_PE = "dwc_pe"
@@ -33,14 +34,14 @@ def engine_unit(node: OpNode) -> str:
     """Which engine executes a node."""
     if isinstance(node, ConvOp):
         return LOW_CHANNEL if node.first_layer else CONV_PE
-    if isinstance(node, LinearOp):
-        return CONV_PE
+    if isinstance(node, (LinearOp, LinearGroupOp, HeadOp)):
+        return CONV_PE                     # classifier-head / LM GEMMs
     if isinstance(node, DwcOp):
         return DWC_PE
-    if isinstance(node, (AddOp, PoolOp)):
-        return MISC
-    if isinstance(node, (InputOp, ConcatOp)):
-        return MEM
+    if isinstance(node, (AddOp, PoolOp, NormOp, MulOp, AttnOp)):
+        return MISC                        # non-conv operators
+    if isinstance(node, (InputOp, ConcatOp, EmbedOp, ViewOp)):
+        return MEM                         # load / interleave / row gather
     raise TypeError(f"unknown op {type(node).__name__}")
 
 

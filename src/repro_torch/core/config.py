@@ -1,20 +1,76 @@
 """Configuration dataclasses (the port's copy of repro.core.config).
 
+  * ArchConfig           -- an LM architecture (the attention-only dense
+                            archs the engine IR lowers).
   * CNNConfig / ConvSpec -- a CNN from the paper's own evaluation zoo.
   * EngineConfig         -- the DPUV4E engine feature set.
 
-This slice serves static-int8 CNNs, so EngineConfig keeps the two knobs
-that path reads: the quant mode and the kernel backend.  The reference's
-other fields (XVDPU baseline, int4 packing, KV-cache dtype, MoE dispatch,
-Pallas interpret mode) join with the slices that run them.
+EngineConfig keeps the knobs the served paths read: the quant mode (with
+the int4 group size of w4a8), the kernel backend and the KV-cache dtype.
+The reference's other fields (XVDPU baseline, MoE dispatch, Pallas
+interpret mode) join with the slices that run them; ArchConfig keeps the
+fields the transformer lowering reads, and the SSM / MoE / encoder fields
+only as far as `lowering_blockers` needs them to refuse an arch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
 
-QUANT_MODES = ("none", "w8a8")
+QUANT_MODES = ("none", "w8a8", "w4a8")
 BACKENDS = ("ref", "cuda")
+KV_DTYPES = ("bf16",)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # --- attention variants -------------------------------------------------
+    qkv_bias: bool = False
+    # per-layer block pattern, cycled: "global" | "local" | "recurrent" |
+    # "mamba"
+    block_pattern: Tuple[str, ...] = ("global",)
+    local_window: int = 4096
+    attn_softcap: float = 0.0        # gemma2 attention-logit softcap (0 = off)
+    final_softcap: float = 0.0       # gemma2 final-logit softcap (0 = off)
+    rope_theta: float = 10000.0
+    mrope: bool = False              # qwen2-vl multimodal RoPE
+
+    # --- MLP ----------------------------------------------------------------
+    mlp_act: str = "silu"            # silu -> SwiGLU, gelu -> GeGLU
+    mlp_gated: bool = True           # False: plain up/act/down
+    tie_embeddings: bool = True
+
+    # --- what the engine IR does not lower (lowering_blockers) --------------
+    n_experts: int = 0
+    encoder_layers: int = 0
+    frontend: str = ""               # "" | "audio_stub" | "vision_stub"
+
+    # --- norms / misc ---------------------------------------------------------
+    norm_eps: float = 1e-6
+    post_norms: bool = False         # gemma2-style pre+post block norms
+    emb_scale: bool = False          # gemma2 scales embeddings by sqrt(d)
+    max_seq_len: int = 524288        # RoPE table cap
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def layer_kind(self, i: int) -> str:
+        return self.block_pattern[i % len(self.block_pattern)]
 
 
 @dataclass(frozen=True)
@@ -43,17 +99,32 @@ class CNNConfig:
 @dataclass(frozen=True)
 class EngineConfig:
     # none -> f32 math (the calibration path); w8a8 -> int8 x int8 -> int32
-    # (the paper's mode).
+    # (the paper's mode); w4a8 -> w8a8 everywhere, except that the LM
+    # projection weights pack to per-group int4 (Q4Tensor), unpacked in
+    # registers by the int4 Conv PE kernel.
     quant: str = "none"
+    # K rows per (scale, zero) group of the w4a8 packing; part of the
+    # ProgramCache key through EngineConfig, so group sizes never collide.
+    w4_group_size: int = 64
     # "ref" = plain PyTorch (kernels/ref.py), "cuda" = the hand-written
     # Hopper kernels (the reference's "pallas" slot).
     backend: str = "ref"
+    # serving KV-cache element type
+    kv_cache_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.quant not in QUANT_MODES:
             raise ValueError(f"quant {self.quant!r} not in {QUANT_MODES}")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+        if self.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "the int8 KV cache is not ported yet (a later LM slice, "
+                "after paged bf16 serving); use kv_cache_dtype='bf16'")
+        if self.kv_cache_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not "
+                             f"in {KV_DTYPES}")
         if self.backend == "cuda" and self.quant == "none":
             raise ValueError("the CUDA kernels run the int8 engines "
-                             "(quant='w8a8'); the float path is backend='ref'")
+                             "(quant='w8a8' / 'w4a8'); the float path is "
+                             "backend='ref'")

@@ -5,7 +5,9 @@ One fabric serves many models (the f-CNNx setting): a request trace
 revisits a small working set, so recompiling -- graph build + calibration +
 requant folding -- on every request would dominate serving latency.
 Programs are cached under ``(model config, EngineConfig, calibration-id)``
-where the model config is the CNNConfig the graph lowered from: the config
+where the model config is the CNNConfig or ArchConfig the graph lowered
+from (with a variant tag that keeps an LM's prefill and decode programs
+apart): the config
 pair pins the lowering and the kernel/quant mode, the calibration id pins
 the static scales and the calibrator method, so a hit is guaranteed to be
 the byte-identical program a fresh compile would produce.
@@ -48,12 +50,14 @@ class CacheStats:
 class ProgramKey:
     """The cache key: what uniquely determines a compiled program."""
     model: Hashable                   # the frontend config the graph lowers
-                                      # from (a CNNConfig)
+                                      # from (a CNNConfig or ArchConfig)
     engine: Optional[Hashable]        # EngineConfig, or None when the
                                       # program is backend-agnostic (dynamic)
     calibration: Optional[str]        # digest of the calibration batches
                                       # and float params, or None for
                                       # uncalibrated programs
+    variant: str = ""                 # the program variant within one
+                                      # model, e.g. "prefill" / "decode:p16"
 
 
 class ProgramCache:

@@ -10,6 +10,11 @@ PyTorch version:
   * `matmul_int8_pool` -- replaces `_kernel_pool` (:311): the GEMM whose
     static global-pool tail is reduced in the kernel, with or without the
     bottleneck's residual operand (`has_res`: ResNet's last block).
+  * `matmul_int4_fused` -- replaces `matmul_int4_fused`, kernel bodies
+    `_kernel_w4` (:189) and `_kernel_w4_res` (:208): int8 activations times
+    packed int4 weights with per-group scale and zero (the w4a8 LM
+    projections; the residual variant carries the O / down projection's
+    residual add).  Kernel in csrc/conv_pe_w4.cu.
 
 Bound on the H100 and the design's answer: see the note at the top of
 csrc/conv_pe.cu (bytes-bound 1x1 GEMMs; K loop inside the block, epilogue
@@ -34,6 +39,13 @@ from repro_torch.kernels._build import ptr, require
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _bind_w4(lib: ctypes.CDLL) -> None:
+    lib.conv_pe_w4.argtypes = [_V, _V, _V, _V, _V, _I, _I, _I, _I, _V, _F,
+                               _V, _I, _I, _V, _F, _V, _I, _F, _I, _F, _I,
+                               _V]
+    lib.conv_pe_w4.restype = _I
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.conv_pe_gemm.argtypes = [_V, _V, _V, _I, _I, _I, _V, _F, _V, _V, _I,
                                  _I, _V, _F, _V, _I, _F, _I, _F, _I, _V]
@@ -55,6 +67,19 @@ def _is_scalar(s) -> bool:
 # matmul_int8_fused (_kernel / _kernel_res)
 # ---------------------------------------------------------------------------
 
+def _residual_tail(x, out_scale, out_dtype, residual, res_scale, mid_scale,
+                   add_act):
+    """The residual epilogue after the GEMM's act: qdq at mid_scale, +
+    residual * res_scale, add_act, requant."""
+    if mid_scale is not None:
+        x = mul(qdq_codes(x, mid_scale), mid_scale)
+    x = x + mul(residual.to(torch.float32), res_scale)
+    x = ref.act_fn(add_act)(x)
+    if out_scale is not None:
+        return qdq_codes(x, out_scale).to(torch.int8)
+    return x.to(out_dtype)
+
+
 def matmul_int8_fused_plain(a_q, b_q, a_scale: Scale, w_scale, bias=None,
                             act: str = "none", out_scale=None,
                             out_dtype=torch.float32, *, residual=None,
@@ -68,13 +93,8 @@ def matmul_int8_fused_plain(a_q, b_q, a_scale: Scale, w_scale, bias=None,
         return ref.matmul_int8_fused(a_q, b_q, a_scale, w_scale, bias, act,
                                      out_scale=out_scale, out_dtype=out_dtype)
     x = ref.matmul_int8_fused(a_q, b_q, a_scale, w_scale, bias, act)
-    if mid_scale is not None:
-        x = mul(qdq_codes(x, mid_scale), mid_scale)
-    x = x + mul(residual.to(torch.float32), res_scale)
-    x = ref.act_fn(add_act)(x)
-    if out_scale is not None:
-        return qdq_codes(x, out_scale).to(torch.int8)
-    return x.to(out_dtype)
+    return _residual_tail(x, out_scale, out_dtype, residual, res_scale,
+                          mid_scale, add_act)
 
 
 def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
@@ -218,6 +238,101 @@ def matmul_int8_pool(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: float,
         float(out_scale) if out_scale is not None else 1.0,
         _build.stream_ptr(a_q))
     name = "conv_pe_pool" if residual is None else "conv_pe_pool_res"
+    _build.check(err, name)
+    _build.count(name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# matmul_int4_fused (_kernel_w4 / _kernel_w4_res)
+# ---------------------------------------------------------------------------
+
+def matmul_int4_fused_plain(a_q, b_packed, a_scale: Scale, w_scale, w_zero,
+                            bias=None, act: str = "none", out_scale=None,
+                            out_dtype=torch.float32, *, residual=None,
+                            res_scale: float = 1.0,
+                            mid_scale: Optional[float] = None,
+                            add_act: str = "none") -> torch.Tensor:
+    """The plain version: ref.matmul_int4_fused (group-ordered f32
+    combine), and for the residual variant the int8 GEMM's tail."""
+    if residual is None:
+        return ref.matmul_int4_fused(a_q, b_packed, a_scale, w_scale, w_zero,
+                                     bias, act, out_scale=out_scale,
+                                     out_dtype=out_dtype)
+    x = ref.matmul_int4_fused(a_q, b_packed, a_scale, w_scale, w_zero, bias,
+                              act)
+    return _residual_tail(x, out_scale, out_dtype, residual, res_scale,
+                          mid_scale, add_act)
+
+
+W4_MAX_GROUP = 1024      # the kernel stages whole groups of <= 1024 K rows
+
+
+def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
+                      a_scale: Scale, w_scale: torch.Tensor,
+                      w_zero: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      act: str = "none", out_scale=None,
+                      out_dtype=torch.float32, *,
+                      residual: Optional[torch.Tensor] = None,
+                      res_scale: float = 1.0,
+                      mid_scale: Optional[float] = None,
+                      add_act: str = "none") -> torch.Tensor:
+    """Fused int4 weight-only GEMM.  a_q int8 [M, K]; b_packed uint8
+    [K//2, N]; w_scale / w_zero f16 [G, N] (K = G * gs, gs a multiple of 4
+    up to 1024); a_scale a Python float (static) or f32 [M, 1]; bias f32
+    [N] or None; out_scale None (f32 out), a Python float or an [N]-sized
+    vector (int8 out).  residual [M, N] (int8 with res_scale, or f32)
+    selects the residual variant.  M and N are any size (masked)."""
+    if not a_q.is_cuda:
+        return matmul_int4_fused_plain(
+            a_q, b_packed, a_scale, w_scale, w_zero, bias, act, out_scale,
+            out_dtype, residual=residual, res_scale=res_scale,
+            mid_scale=mid_scale, add_act=add_act)
+    m, k = a_q.shape
+    k2, n = b_packed.shape
+    g = w_scale.shape[0]
+    if k != 2 * k2 or k % g or (k // g) % 4 or k // g > W4_MAX_GROUP:
+        raise ValueError(f"conv_pe_w4: K={k}, packed rows {k2}, {g} groups: "
+                         f"want K = 2 * rows and a group size that is a "
+                         f"multiple of 4 up to {W4_MAX_GROUP}")
+    require(a_q, "a_q", torch.int8)
+    if a_q.data_ptr() % 4:
+        raise ValueError("a_q: expected a 4-byte aligned tensor")
+    require(b_packed, "b_packed", torch.uint8)
+    require(w_scale, "w_scale", torch.float16, (g, n))
+    require(w_zero, "w_zero", torch.float16, (g, n))
+    asc = None
+    if isinstance(a_scale, torch.Tensor):
+        asc = require(a_scale.reshape(m), "a_scale", torch.float32)
+    if bias is not None:
+        require(bias, "bias", torch.float32, (n,))
+    os_vec, os_val = None, 1.0
+    if out_scale is not None:
+        if _is_scalar(out_scale):
+            os_val = float(out_scale)
+        else:
+            os_vec = require(out_scale.reshape(n), "out_scale", torch.float32)
+    elif out_dtype != torch.float32:
+        raise ValueError(f"conv_pe_w4 writes f32 or int8, not {out_dtype}")
+    if residual is not None:
+        if residual.dtype not in (torch.int8, torch.float32):
+            raise ValueError("residual must be int8 or f32")
+        require(residual, "residual", residual.dtype, (m, n))
+    out = torch.empty((m, n), device=a_q.device,
+                      dtype=torch.int8 if out_scale is not None
+                      else torch.float32)
+    err = _build.library("conv_pe_w4", _bind_w4).conv_pe_w4(
+        a_q.data_ptr(), b_packed.data_ptr(), w_scale.data_ptr(),
+        w_zero.data_ptr(), out.data_ptr(), m, n, k, k // g, ptr(asc),
+        float(a_scale) if asc is None else 0.0, ptr(bias),
+        _build.act_code(act), int(out_scale is not None), ptr(os_vec),
+        os_val, ptr(residual),
+        int(residual is not None and residual.dtype == torch.float32),
+        float(res_scale), int(mid_scale is not None),
+        float(mid_scale) if mid_scale is not None else 1.0,
+        _build.act_code(add_act), _build.stream_ptr(a_q))
+    name = "conv_pe_w4" if residual is None else "conv_pe_w4_res"
     _build.check(err, name)
     _build.count(name)
     return out

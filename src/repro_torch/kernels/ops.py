@@ -1,11 +1,16 @@
-"""Public kernel wrappers, CNN half: backend dispatch, im2col, padding.
+"""Public kernel wrappers: backend dispatch, im2col, padding.
 
 Two backends (EngineConfig.backend):
   * "ref"  -- plain PyTorch (kernels/ref.py + the _epilogue chain): the
               calibration path and the bit-exact reference;
-  * "cuda" -- the hand-written Hopper kernels (conv_pe, dwc_pe,
-              low_channel, misc_pe), whose wrappers launch on CUDA tensors
-              and run their plain versions on CPU tensors.
+  * "cuda" -- the hand-written Hopper kernels (conv_pe, conv_pe_w4, dwc_pe,
+              low_channel, misc_pe, paged_gather), whose wrappers launch on
+              CUDA tensors and run their plain versions on CPU tensors.
+
+The LM projections dispatch on the weight container: a QTensor runs the
+int8 Conv PE, a Q4Tensor (quant="w4a8") the int4 one.  `linear_group`
+runs a fused projection group (Q/K/V, gate/up) as ONE launch over the
+members' weights concatenated along N on the CUDA backend.
 
 The reference's TPU block picker (`pick_blocks`, sized from a model of
 VMEM) and its M/N/K and 128-lane padding have no counterpart: the CUDA
@@ -19,15 +24,21 @@ Low-Channel avg / global tails, avg / max pooled GEMM tails and dynamic
 from __future__ import annotations
 
 import math
-from typing import Optional
+import weakref
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.quant import QTensor, f32, quantize_act_dynamic
-from repro_torch.kernels import (_epilogue, conv_pe, dwc_pe, low_channel,
-                                misc_pe, ref)
+from repro_torch.core.quant import (Q4Tensor, QTensor, f32,
+                                    quantize_act_dynamic)
+from repro_torch.kernels import (_epilogue, conv_pe, dwc_pe, flash_attn,
+                                low_channel, misc_pe, ref)
+
+# Quant modes with int8 activations on the Conv PE (w4a8 packs the LM
+# projection WEIGHTS to int4; everything else runs exactly like w8a8).
+_INT8_ACTS = ("w8a8", "w4a8")
 
 
 def _chain_kwargs(ep, static: bool, out_scale):
@@ -55,6 +66,23 @@ def _no_kernel(what: str):
 # Conv PE: quantized linear (1x1 convs, im2col GEMMs, the classifier head)
 # ---------------------------------------------------------------------------
 
+def _gemm_operands(x, kdim_w: int):
+    """(leading dims, a_q [M, K], a_scale) of a GEMM input: a QTensor with
+    a static per-tensor scale, or float [..., K] quantized per token
+    (a_scale [M, 1])."""
+    static = isinstance(x, QTensor)
+    xv = x.q if static else x
+    lead = xv.shape[:-1]
+    kdim = xv.shape[-1]
+    if kdim != kdim_w:
+        raise ValueError(f"GEMM input K={kdim}, weight K={kdim_w}")
+    x2 = xv.reshape(math.prod(lead), kdim)
+    if static:
+        return lead, x2.contiguous(), float(x.scale)
+    xq = quantize_act_dynamic(x2, per_token=True)
+    return lead, xq.q, xq.scale
+
+
 def linear_int8(x, w: QTensor, bias: Optional[torch.Tensor], act: str,
                 cfg: EngineConfig, out_dtype=torch.float32, out_scale=None,
                 residual: Optional[torch.Tensor] = None,
@@ -65,21 +93,12 @@ def linear_int8(x, w: QTensor, bias: Optional[torch.Tensor], act: str,
     out_scale: static requant scale -> int8 out (a float, or a per-channel
     sequence); None -> float out.  residual [..., N] streams the fused
     residual epilogue into the CUDA kernel (the ref backend composes the
-    chain in conv2d_pe instead)."""
-    static = isinstance(x, QTensor)
-    xv = x.q if static else x
-    lead = xv.shape[:-1]
-    kdim = xv.shape[-1]
+    chain in its callers instead)."""
     n = w.q.shape[-1]
+    lead, a_q, a_scale = _gemm_operands(x, w.q.shape[0])
+    m = a_q.shape[0]
     if out_scale is not None and not isinstance(out_scale, (int, float)):
-        out_scale = f32(out_scale, xv.device).reshape(1, n)
-    m = math.prod(lead)
-    x2 = xv.reshape(m, kdim)
-    if static:
-        a_q, a_scale = x2.contiguous(), float(x.scale)
-    else:
-        xq = quantize_act_dynamic(x2, per_token=True)       # a_scale [M, 1]
-        a_q, a_scale = xq.q, xq.scale
+        out_scale = f32(out_scale, a_q.device).reshape(1, n)
     w_scale = w.scale.reshape(1, n)
     if _kernels(cfg):
         out = conv_pe.matmul_int8_fused(
@@ -89,9 +108,39 @@ def linear_int8(x, w: QTensor, bias: Optional[torch.Tensor], act: str,
     else:
         if residual is not None:
             raise ValueError("the ref backend composes fused residuals in "
-                             "the conv wrapper")
+                             "the callers")
         out = ref.matmul_int8_fused(a_q, w.q, a_scale, w_scale, bias, act,
                                     out_scale=out_scale, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def linear_w4(x, w: Q4Tensor, bias: Optional[torch.Tensor], act: str,
+              cfg: EngineConfig, out_dtype=torch.float32, out_scale=None,
+              residual: Optional[torch.Tensor] = None,
+              res_scale: float = 1.0, mid_scale: Optional[float] = None,
+              add_act: str = "none") -> torch.Tensor:
+    """Int4 weight-only GEMM over int8 activations (quant='w4a8').  x as in
+    linear_int8; w: Q4Tensor (packed [K//2, N] + per-group f16 scale /
+    zero).  The CUDA kernel unpacks the nibbles in registers; nothing is
+    padded.  Epilogue contract as linear_int8."""
+    n = w.packed.shape[-1]
+    lead, a_q, a_scale = _gemm_operands(x, 2 * w.packed.shape[0])
+    m = a_q.shape[0]
+    if out_scale is not None and not isinstance(out_scale, (int, float)):
+        out_scale = f32(out_scale, a_q.device).reshape(1, n)
+    if _kernels(cfg):
+        out = conv_pe.matmul_int4_fused(
+            a_q, w.packed, a_scale, w.scale, w.zero, bias, act, out_scale,
+            out_dtype,
+            residual=None if residual is None else residual.reshape(m, n),
+            res_scale=res_scale, mid_scale=mid_scale, add_act=add_act)
+    else:
+        if residual is not None:
+            raise ValueError("the ref backend composes fused residuals in "
+                             "the callers")
+        out = ref.matmul_int4_fused(a_q, w.packed, a_scale, w.scale, w.zero,
+                                    bias, act, out_scale=out_scale,
+                                    out_dtype=out_dtype)
     return out.reshape(*lead, n)
 
 
@@ -110,25 +159,120 @@ def linear(x, w, bias, act: str, cfg: EngineConfig, out_dtype=None,
            out_scale=None, residual: Optional[torch.Tensor] = None,
            res_scale: float = 1.0, mid_scale: Optional[float] = None,
            add_act: str = "none") -> torch.Tensor:
-    """Dispatch on quant mode and weight container type (QTensor weights
-    under w8a8 -> the int8 Conv PE path; float weights -> linear_f)."""
-    if isinstance(w, QTensor) and cfg.quant == "w8a8":
-        return linear_int8(x, w, bias, act, cfg,
-                           out_dtype=out_dtype or torch.float32,
-                           out_scale=out_scale, residual=residual,
-                           res_scale=res_scale, mid_scale=mid_scale,
-                           add_act=add_act)
+    """Dispatch on quant mode and weight container type: Q4Tensor weights
+    (quant='w4a8') -> the int4 Conv PE, QTensor weights under w8a8 / w4a8
+    -> the int8 Conv PE, float weights -> linear_f."""
+    kw = dict(out_dtype=out_dtype or torch.float32, out_scale=out_scale,
+              residual=residual, res_scale=res_scale, mid_scale=mid_scale,
+              add_act=add_act)
+    if isinstance(w, Q4Tensor):
+        if cfg.quant != "w4a8":
+            raise ValueError(f"Q4Tensor weights require quant='w4a8' "
+                             f"(got {cfg.quant!r})")
+        return linear_w4(x, w, bias, act, cfg, **kw)
+    if isinstance(w, QTensor) and cfg.quant in _INT8_ACTS:
+        return linear_int8(x, w, bias, act, cfg, **kw)
     if isinstance(w, QTensor):
-        raise ValueError("quantized weights need quant='w8a8' "
+        raise ValueError("quantized weights need quant='w8a8' or 'w4a8' "
                          "(weight-only int8 is not ported)")
     if residual is not None:
-        raise ValueError("fused residual epilogues require quant='w8a8' "
-                         "with quantized weights")
+        raise ValueError("fused residual epilogues require an int8-"
+                         "activation quant mode with quantized weights")
     if isinstance(x, QTensor) or out_scale is not None:
         raise ValueError("static int8 activations / out_scale require "
-                         f"quant='w8a8' with quantized weights "
+                         f"quant='w8a8' / 'w4a8' with quantized weights "
                          f"(got quant={cfg.quant!r})")
     return linear_f(x, w, bias, act, cfg, out_dtype=out_dtype)
+
+
+# Fused projection groups' concatenated weights, built once per set of
+# member tensors (the reference concatenates on every call, under jit):
+# key = the members' tensor ids, checked against weak references so a
+# freed member can never alias a stale entry.
+_GROUP_WEIGHTS: Dict[tuple, tuple] = {}
+
+
+def _fused_weight(ws: Sequence):
+    leaves = [t for w in ws for t in w]
+    key = tuple(id(t) for t in leaves)
+    hit = _GROUP_WEIGHTS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], leaves)):
+        return hit[1]
+    for k in [k for k, (refs, _) in _GROUP_WEIGHTS.items()
+              if any(r() is None for r in refs)]:
+        del _GROUP_WEIGHTS[k]
+    if isinstance(ws[0], Q4Tensor):
+        # members share K and the snapped group size, so the per-group
+        # scale / zero tables concatenate along N too
+        fused = Q4Tensor(*(torch.cat([getattr(w, f) for w in ws], dim=1)
+                           for f in ("packed", "scale", "zero")))
+    else:
+        fused = QTensor(torch.cat([w.q for w in ws], dim=1),
+                        torch.cat([w.scale.reshape(1, -1) for w in ws],
+                                  dim=1))
+    _GROUP_WEIGHTS[key] = ([weakref.ref(t) for t in leaves], fused)
+    return fused
+
+
+def linear_group(x, ws, bs, acts, cfg: EngineConfig, out_dtype=None):
+    """A fused multi-output projection group (Q/K/V, gate/up): one shared
+    input, the members' outputs returned as a tuple.
+
+    On the CUDA backend with quantized members the weights concatenate
+    along N into ONE kernel launch: the activation row is quantized and
+    read once.  Columns never mix members' reductions, so each member's
+    slice equals its own launch bit for bit; each member's act runs on its
+    slice afterwards.  The ref and float paths compose member-wise."""
+    kinds = {type(w) for w in ws}
+    fused = _kernels(cfg) and (
+        (kinds == {QTensor} and cfg.quant in _INT8_ACTS)
+        or (kinds == {Q4Tensor} and cfg.quant == "w4a8"))
+    if not fused:
+        return tuple(linear(x, w, b, a, cfg, out_dtype=out_dtype)
+                     for w, b, a in zip(ws, bs, acts))
+    ns = [w.shape[-1] for w in ws]
+    bias = None
+    if any(b is not None for b in bs):
+        xdev = (x.q if isinstance(x, QTensor) else x).device
+        bias = torch.cat([b.to(torch.float32) if b is not None
+                          else torch.zeros(nn, dtype=torch.float32,
+                                           device=xdev)
+                          for b, nn in zip(bs, ns)])
+    out = linear(x, _fused_weight(ws), bias, "none", cfg,
+                 out_dtype=torch.float32)
+    outs, off = [], 0
+    for nn, a in zip(ns, acts):
+        y = out[..., off:off + nn].contiguous()
+        if a != "none":
+            y = ref.act_fn(a)(y)
+        outs.append(y.to(out_dtype) if out_dtype is not None else y)
+        off += nn
+    return tuple(outs)
+
+
+def linear_ep(x, w, bias, act: str, ep, residual, cfg: EngineConfig, *,
+              res_scale: float = 1.0, out_scale=None,
+              out_dtype=torch.float32) -> torch.Tensor:
+    """A LinearOp with a fused epilogue: the residual add after an O / down
+    projection.  On the CUDA backend with quantized weights the residual
+    streams into the kernel's epilogue (ep.mid_scale re-quantizes the GEMM
+    output at its pre-fusion edge scale in a static program); the ref and
+    float paths compose the same chain on the GEMM output
+    (_epilogue.fused_chain)."""
+    static = isinstance(x, QTensor)
+    quanted = ((isinstance(w, QTensor) and cfg.quant in _INT8_ACTS)
+               or (isinstance(w, Q4Tensor) and cfg.quant == "w4a8"))
+    if _kernels(cfg) and quanted and ep.pool == "none":
+        return linear(x, w, bias, act, cfg, out_dtype=out_dtype,
+                      out_scale=out_scale, residual=residual,
+                      res_scale=res_scale,
+                      mid_scale=(ep.mid_scale if static and ep.mid_scale
+                                 else None),
+                      add_act=ep.add_act)
+    y = linear(x, w, bias, act, cfg, out_dtype=torch.float32)
+    return _epilogue.fused_chain(
+        y, residual=residual, res_scale=res_scale,
+        **_chain_kwargs(ep, static and quanted, out_scale))
 
 
 # ---------------------------------------------------------------------------
@@ -366,3 +510,20 @@ def avgpool2d(x: torch.Tensor, window: int, stride: int, cfg: EngineConfig,
     if _kernels(cfg):
         return misc_pe.avgpool2d(x, window, stride, out_dtype=out_dtype)
     return ref.avgpool2d(x, window, stride, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache gather (LM serving)
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor,
+                 cfg: EngineConfig) -> torch.Tensor:
+    """Gather a block-paged KV pool [N, P, ...] into the slot-ordered dense
+    view [B, M*P, ...] through block table [B, M].  Table entries are
+    clipped into [0, N-1] here, once, for both backends: unallocated pages
+    carry the sentinel N, and whatever a clipped sentinel reads sits past
+    the slot's length, where the decode mask discards it."""
+    tables = torch.clamp(tables, 0, pool.shape[0] - 1).to(torch.int32)
+    if _kernels(cfg):
+        return flash_attn.paged_gather(pool, tables.contiguous())
+    return ref.paged_gather(pool, tables)

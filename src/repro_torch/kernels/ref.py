@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quant import Scale, div, mul, qdq_codes
+from repro_torch.core.quant import Scale, div, mul, qdq_codes, unpack_int4
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +77,60 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor,
     """
     acc = int_matmul(a_q, b_q)
     x = mul(mul(acc.to(torch.float32), a_scale), w_scale)
+    if bias is not None:
+        x = x + bias
+    return _requant(act_fn(act)(x), out_scale, out_dtype)
+
+
+def int4_group_dot(a_q: torch.Tensor, codes: torch.Tensor,
+                   w_scale: torch.Tensor, w_zero: torch.Tensor
+                   ) -> torch.Tensor:
+    """The int4 weight-only MAC the Conv PE runs in registers.
+
+    a_q int8 [M, K]; codes [K, N] in [0, 15]; w_scale / w_zero [G, N]
+    (K = G * gs).  Per-group int32 partial sums are exact; the f32 combine
+    runs in a FIXED order, group by group:
+
+        acc_s = (((p_0 * s_0) + p_1 * s_1) + ...)     p_g = a_g . codes_g
+        acc_z = (((r_0 * z_0) + r_1 * z_1) + ...)     r_g = sum(a_g)
+        out   = acc_s + acc_z
+
+    every product and sum rounded to f32 -- the order the CUDA kernel
+    (csrc/conv_pe_w4.cu) keeps with explicitly rounded intrinsics, so the
+    two agree bit for bit.  The reference's jnp version sums the groups in
+    an order XLA picks (`ref.int4_group_dot`); this one lies within an
+    ulp-level tolerance of it."""
+    m, k = a_q.shape
+    g, n = w_scale.shape
+    gs = k // g
+    ag = a_q.reshape(m, g, gs)
+    part = torch.bmm(ag.to(torch.float64).permute(1, 0, 2),
+                     codes.reshape(g, gs, n).to(torch.float64)
+                     ).to(torch.int32)                        # [G, M, N]
+    asum = ag.to(torch.int32).sum(dim=-1, dtype=torch.int32)  # [M, G]
+    # every group's two products (each rounded once), then the two sums
+    # advanced side by side, one group at a time
+    prods = torch.stack([
+        part.to(torch.float32) * w_scale.to(torch.float32)[:, None, :],
+        asum.t().to(torch.float32)[:, :, None]
+        * w_zero.to(torch.float32)[:, None, :]], dim=1)       # [G, 2, M, N]
+    acc = torch.zeros((2, m, n), dtype=torch.float32, device=a_q.device)
+    for gi in range(g):
+        acc = acc + prods[gi]
+    return acc[0] + acc[1]
+
+
+def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
+                      a_scale: Scale, w_scale: torch.Tensor,
+                      w_zero: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      act: str = "none", out_scale: Optional[Scale] = None,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Int4 weight-only GEMM: unpack -> group dot -> * a_scale -> + bias ->
+    act -> requant.  a_q int8 [M, K], a_scale [M, 1] or a scalar;
+    b_packed uint8 [K//2, N] with w_scale / w_zero [G, N]."""
+    x = mul(int4_group_dot(a_q, unpack_int4(b_packed), w_scale, w_zero),
+            a_scale)
     if bias is not None:
         x = x + bias
     return _requant(act_fn(act)(x), out_scale, out_dtype)
@@ -191,3 +245,20 @@ def maxpool2d(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 def global_avgpool(x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     return x.to(torch.float32).mean(dim=(1, 2)).to(out_dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache gather (LM serving)
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """pool [N, P, ...] + block table [B, M] -> the slot-ordered dense view
+    [B, M*P, ...]: a pure copy.  Table entries are clipped into [0, N-1]
+    (sentinel entries read SOME block, whose positions the decode mask
+    discards)."""
+    n, p = pool.shape[0], pool.shape[1]
+    b, m = tables.shape
+    blk = torch.clamp(tables.to(torch.int64), 0, n - 1)
+    flat = (blk[..., None] * p + torch.arange(p, device=pool.device)
+            [None, None, :]).reshape(b, m * p)
+    return pool.reshape((n * p,) + tuple(pool.shape[2:]))[flat]

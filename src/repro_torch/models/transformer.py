@@ -1,0 +1,257 @@
+"""Decoder-only LM: parameter and serving-cache schemas and the KV-cache
+helpers (the port's copy of the parts of repro.models.transformer that
+the compiled LM programs and ServeEngine call).
+
+The model itself runs as compiled engine programs (compiler.lower_
+transformer -> executor); the reference's eager `forward` / `prefill` /
+`decode` are a later slice.  Only attention mixers ("global" / "local"
+layers) with a dense MLP are schema'd here; SSM, recurrent and MoE layers
+raise.
+
+The reference writes the cache with functional JAX scatters whose
+out-of-range indices are dropped (`mode="drop"`, positive sentinels).  A
+torch index out of range raises on the CPU and is a device-side assert on
+the card, so every store here masks its writes explicitly (`_drop_store`)
+and updates the cache tensors IN PLACE (the reference returns new arrays;
+the serving engine threads one cache through, so nothing keeps the old
+values).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.config import ArchConfig, EngineConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamSpec, is_spec
+
+
+def _attention_only(arch: ArchConfig, i: int) -> str:
+    kind = arch.layer_kind(i)
+    if kind not in ("global", "local"):
+        raise NotImplementedError(
+            f"{arch.name}: layer kind {kind!r} is not ported (the SSM / "
+            "recurrent mixers join with the eager long-tail slice)")
+    return kind
+
+
+def block_schema(arch: ArchConfig, i: int) -> dict:
+    _attention_only(arch, i)
+    if arch.is_moe:
+        raise NotImplementedError(f"{arch.name}: MoE layers are not ported")
+    d = arch.d_model
+    s: Dict[str, Any] = {"norm": ParamSpec((d,), "zeros"),
+                         "attn": L.attention_schema(arch)}
+    if arch.post_norms:
+        s["post_attn_norm"] = ParamSpec((d,), "zeros")
+    if arch.d_ff > 0:
+        s["mlp_norm"] = ParamSpec((d,), "zeros")
+        s["mlp"] = L.mlp_schema(arch)
+        if arch.post_norms:
+            s["post_mlp_norm"] = ParamSpec((d,), "zeros")
+    return s
+
+
+def lm_schema(arch: ArchConfig) -> dict:
+    d, v = arch.d_model, arch.vocab_size
+    s = {
+        "embed": ParamSpec((v, d), "embed"),
+        "blocks": [block_schema(arch, i) for i in range(arch.n_layers)],
+        "final_norm": ParamSpec((d,), "zeros"),
+    }
+    if not arch.tie_embeddings:
+        s["head"] = ParamSpec((d, v))
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Serving cache
+# ---------------------------------------------------------------------------
+
+def _kv_dtype(eng: EngineConfig) -> torch.dtype:
+    if eng.kv_cache_dtype != "bf16":
+        raise NotImplementedError("only the bf16 KV cache is ported")
+    return torch.bfloat16
+
+
+def cache_schema(arch: ArchConfig, batch: int, max_seq: int,
+                 eng: EngineConfig) -> dict:
+    """Dense cache schema: per layer k / v [B, S, Hkv, D] (S = the local
+    window for ring layers), plus the position."""
+    kv_dt = _kv_dtype(eng)
+    nkv, hd = arch.n_kv_heads, arch.head_dim
+    per_layer = []
+    for i in range(arch.n_layers):
+        kind = _attention_only(arch, i)
+        s = min(arch.local_window, max_seq) if kind == "local" else max_seq
+        per_layer.append({
+            "k": ParamSpec((batch, s, nkv, hd), "zeros", kv_dt),
+            "v": ParamSpec((batch, s, nkv, hd), "zeros", kv_dt)})
+    return {"layers": per_layer, "pos": ParamSpec((), "zeros", torch.int32)}
+
+
+def num_pages(max_seq: int, page_size: int) -> int:
+    """Table width: pages per slot at worst-case length."""
+    return -(-max_seq // page_size)
+
+
+def paged_cache_schema(arch: ArchConfig, batch: int, max_seq: int,
+                       eng: EngineConfig, page_size: int,
+                       num_blocks: Optional[int] = None) -> dict:
+    """Block-paged cache schema: global layers keep k / v in a shared pool
+    [num_blocks, page_size, Hkv, D] behind ONE block table
+    cache["tables"] [B, max_pages] (block b of every layer's pool belongs
+    to the same slot); local ring layers stay dense per slot.  max_seq must
+    be a page multiple, so the gathered view has the dense cache's shape."""
+    if max_seq % page_size:
+        raise ValueError(f"max_seq={max_seq} must be a multiple of "
+                         f"page_size={page_size} (round it up)")
+    pages = num_pages(max_seq, page_size)
+    if num_blocks is None:
+        num_blocks = batch * pages
+    kv_dt = _kv_dtype(eng)
+    nkv, hd = arch.n_kv_heads, arch.head_dim
+    per_layer = []
+    for i in range(arch.n_layers):
+        if _attention_only(arch, i) == "local":
+            s = min(arch.local_window, max_seq)
+            shape = (batch, s, nkv, hd)
+        else:
+            shape = (num_blocks, page_size, nkv, hd)
+        per_layer.append({"k": ParamSpec(shape, "zeros", kv_dt),
+                          "v": ParamSpec(shape, "zeros", kv_dt)})
+    return {"layers": per_layer,
+            "tables": ParamSpec((batch, pages), "zeros", torch.int32),
+            "pos": ParamSpec((), "zeros", torch.int32)}
+
+
+def zeros_from_schema(schema, device):
+    """Materialize a cache schema as zero tensors on `device`."""
+    if is_spec(schema):
+        return torch.zeros(schema.shape, dtype=schema.dtype, device=device)
+    if isinstance(schema, dict):
+        return {k: zeros_from_schema(v, device) for k, v in schema.items()}
+    if isinstance(schema, (list, tuple)):
+        return type(schema)(zeros_from_schema(v, device) for v in schema)
+    return schema
+
+
+def _drop_store(buf: torch.Tensor, index: torch.Tensor, valid: torch.Tensor,
+                vals: torch.Tensor) -> None:
+    """buf[index[i]] = vals[i] where valid[i]; other writes are dropped.
+
+    `index` [n] into buf's first dim, `vals` [n, *buf.shape[1:]].  The
+    dropped rows are redirected onto the first valid row's target with
+    that row's value (or, with no valid row, onto entry 0 with its own
+    value), so every duplicate target receives one value and the in-place
+    scatter is deterministic -- with no host sync to select the rows."""
+    n = buf.shape[0]
+    idx = torch.clamp(index, 0, n - 1)
+    vals = vals.to(buf.dtype)
+    # the first valid row (row 0 if none), selected on the device: indexing
+    # with a 0-d tensor would read it back to the host
+    j = torch.argmax(valid.to(torch.int32)).reshape(1)
+    anyv = valid.any()
+    fb_idx = torch.where(anyv, idx.index_select(0, j), 0)
+    fb_val = torch.where(anyv, vals.index_select(0, j), buf[:1])
+    shape = (-1,) + (1,) * (vals.ndim - 1)
+    tgt = torch.where(valid, idx, fb_idx)
+    src = torch.where(valid.reshape(shape), vals, fb_val)
+    buf[tgt] = src
+
+
+def _kv_store(entry: dict, k, v, idx, eng: EngineConfig) -> dict:
+    """Write k / v [B, L, Hkv, D] into a dense cache entry at position idx:
+    a Python int (the prefill span, L tokens) or a [B] tensor of per-slot
+    positions (one decode token per slot; positions past the cache end
+    are dropped, like the reference's out-of-range scatter)."""
+    entry = dict(entry)
+    if isinstance(idx, torch.Tensor) and idx.ndim == 1:
+        b, s = k.shape[0], entry["k"].shape[1]
+        valid = idx < s
+        for name, val in (("k", k), ("v", v)):
+            buf = entry[name]
+            rows = buf.view(b * s, *buf.shape[2:])
+            flat = torch.arange(b, device=idx.device) * s + torch.clamp(
+                idx.to(torch.int64), 0, s - 1)
+            _drop_store(rows, flat, valid, val[:, 0])
+        return entry
+    idx = int(idx)
+    l = k.shape[1]
+    if idx < 0 or idx + l > entry["k"].shape[1]:
+        raise ValueError(f"cache span [{idx}, {idx + l}) outside "
+                         f"[0, {entry['k'].shape[1]})")
+    for name, val in (("k", k), ("v", v)):
+        entry[name][:, idx:idx + l] = val.to(entry[name].dtype)
+    return entry
+
+
+def _kv_read(entry: dict, eng: EngineConfig):
+    _kv_dtype(eng)
+    return entry["k"], entry["v"]
+
+
+def _paged_flat_idx(tables: torch.Tensor, idx: torch.Tensor, page: int):
+    """(flat pool index, in-table) of per-slot positions idx [B]: the
+    slot's block id (from its table row) times the page size plus the
+    in-page offset.  Unallocated entries hold the sentinel `num_blocks`,
+    so their flat index lies past the pool and the store drops it."""
+    pages = tables.shape[1]
+    pidx = torch.div(idx, page, rounding_mode="floor")
+    in_table = pidx < pages
+    blk = torch.gather(tables, 1, torch.clamp(pidx, 0, pages - 1)[:, None]
+                       .to(torch.int64))[:, 0]
+    return blk.to(torch.int64) * page + idx % page, in_table
+
+
+def _paged_kv_store(entry: dict, k, v, tables: torch.Tensor, idx,
+                    eng: EngineConfig, page: int) -> dict:
+    """Write ONE new token's k / v [B, 1, Hkv, D] into the block pool at
+    per-slot positions idx ([B] or scalar), through the block table."""
+    _kv_dtype(eng)
+    entry = dict(entry)
+    b = k.shape[0]
+    idx = torch.broadcast_to(torch.as_tensor(idx, dtype=torch.int32,
+                                             device=k.device), (b,))
+    flat, in_table = _paged_flat_idx(tables, idx, page)
+    for name, val in (("k", k), ("v", v)):
+        pool = entry[name]
+        fp = pool.view(-1, *pool.shape[2:])
+        valid = in_table & (flat < fp.shape[0])
+        _drop_store(fp, flat, valid, val[:, 0])
+    return entry
+
+
+def _paged_kv_read(entry: dict, tables: torch.Tensor, eng: EngineConfig):
+    """Gather the slot-ordered dense view [B, pages*page, Hkv, D] of a
+    block pool through the table: a pure copy, so attention over it is
+    bitwise the dense cache's (positions past a slot's length hold other
+    blocks' data, which the decode mask sends to exactly zero weight)."""
+    from repro_torch.kernels import ops
+    _kv_dtype(eng)
+    return (ops.paged_gather(entry["k"], tables, eng),
+            ops.paged_gather(entry["v"], tables, eng))
+
+
+def _paged_prefill_store(entry: dict, k, v, tables: torch.Tensor,
+                         mask: torch.Tensor, eng: EngineConfig,
+                         page: int) -> dict:
+    """Scatter a prefill's whole k / v span [B, L, Hkv, D] into the block
+    pool through the table, rows gated by `mask` [B] (the refilled slots;
+    the other rows' writes drop)."""
+    _kv_dtype(eng)
+    entry = dict(entry)
+    b, l = k.shape[0], k.shape[1]
+    pidx = torch.arange(l, device=k.device)
+    blk = torch.gather(tables, 1, torch.broadcast_to(
+        torch.div(pidx, page, rounding_mode="floor")[None, :], (b, l))
+        .to(torch.int64)).to(torch.int64)
+    flat = blk * page + (pidx % page)[None, :]                # [B, L]
+    for name, val in (("k", k), ("v", v)):
+        pool = entry[name]
+        fp = pool.view(-1, *pool.shape[2:])
+        valid = mask[:, None] & (flat < fp.shape[0])
+        _drop_store(fp, flat.reshape(-1), valid.reshape(-1),
+                    val.reshape(b * l, *val.shape[2:]))
+    return entry

@@ -36,17 +36,22 @@ def _leaves(tree):
         yield tree
 
 
-def _host_bytes(a) -> bytes:
+def _host_bytes(a) -> np.ndarray:
+    """A leaf's bytes as a contiguous host array (hashed without a copy)."""
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
-    return np.ascontiguousarray(np.asarray(a)).tobytes()
+    return np.ascontiguousarray(np.asarray(a))
 
 
-def calibration_digest(batches: Sequence, params=None) -> str:
+def calibration_digest(batches: Sequence, params=None,
+                       weight_mode: str = "") -> str:
     """Stable id of the calibration inputs.  The recorded scales depend on
     the batches AND the float params (calibrate() runs the model), so both
     are digested: re-registering a model with new weights or new batches
-    must miss the cache, not reuse stale activation scales."""
+    must miss the cache, not reuse stale activation scales.  `weight_mode`
+    (core.engine.weight_mode: "" for int8 weights, "w4g64" for int4
+    groups) is appended, so w4 and w8 programs of one model never share a
+    cache line: their activation scales coincide, their weights do not."""
     h = hashlib.sha1()
     for b in batches:
         h.update(str(tuple(b.shape)).encode())
@@ -54,7 +59,8 @@ def calibration_digest(batches: Sequence, params=None) -> str:
     if params is not None:
         for leaf in _leaves(params):
             h.update(_host_bytes(leaf))
-    return h.hexdigest()[:12]
+    digest = h.hexdigest()[:12]
+    return f"{digest}:{weight_mode}" if weight_mode else digest
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +131,20 @@ class SlotScheduler:
             return len(self._queues.get(group, []))
         return sum(len(q) for q in self._queues.values())
 
+    def peek(self, group: Hashable) -> List[object]:
+        """The group's queued payloads, oldest first (not dequeued)."""
+        return [e.payload for e in self._queues.get(group, [])]
+
+    def take(self, group: Hashable, limit: int) -> List[Tuple[int, object]]:
+        """Pop up to `limit` requests, oldest first (the LM engine's
+        slot-by-slot refill; no padding is charged)."""
+        q = self._queues.get(group, [])
+        taken, self._queues[group] = q[:limit], q[limit:]
+        self.stats.dispatched += len(taken)
+        if taken and len({e.epoch for e in taken}) > 1:
+            self.stats.refilled_waves += 1
+        return [(e.ticket, e.payload) for e in taken]
+
     def take_wave(self, group: Hashable, force: bool = False
                   ) -> Optional[List[Tuple[int, object]]]:
         """Pop one wave of exactly `slots` requests, or None when the group
@@ -182,8 +202,11 @@ class ProgramServeBase:
 
     # -- program cache -------------------------------------------------------
 
-    def _program_key(self, model_cfg, calib_id: Optional[str]) -> ProgramKey:
-        return ProgramKey(model_cfg, self.eng, calib_id)
+    def _program_key(self, model_cfg, calib_id: Optional[str],
+                     tag: str = "") -> ProgramKey:
+        """The cache key; `tag` names the program variant (an LM's
+        "prefill" and "decode:p16" programs hold distinct lines)."""
+        return ProgramKey(model_cfg, self.eng, calib_id, tag)
 
     def _cached_program(self, key: ProgramKey,
                         compile_fn: Callable[[], Program]) -> Program:

@@ -7,13 +7,16 @@ at import).  On the machine with the card:
 
 Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
 stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
-counts); every output must equal the plain version bit for bit.
+counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes);
+every output must equal the plain version bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, conv_pe, dwc_pe, low_channel, misc_pe
+from repro_torch.core.quant import pack_int4
+from repro_torch.kernels import (_build, conv_pe, dwc_pe, flash_attn,
+                                 low_channel, misc_pe)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +162,67 @@ def test_avgpool2d(dev, shape, window, stride, dtype):
            misc_pe.avgpool2d_plain(x, window, stride))
 
 
+def _w4(rng, dev, m, k, n, gs):
+    a = _q(rng, (m, k), dev)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev)
+    return a, pack_int4(w, gs)
+
+
+@pytest.mark.parametrize("m,k,n,gs", [(4, 1536, 2048, 64), (37, 192, 70, 64),
+                                      (9, 8960, 33, 64), (5, 96, 40, 32)])
+@pytest.mark.parametrize("out_kind", ["f32", "scalar", "vector"])
+def test_conv_pe_w4(dev, m, k, n, gs, out_kind):
+    """Plain int4 GEMM with bias: per-row a_scale, f32 or int8 out at a
+    scalar or a per-column scale (K=8960 runs nine staging chunks)."""
+    rng = np.random.default_rng(m + k + n)
+    a, q4 = _w4(rng, dev, m, k, n, gs)
+    asc, bias = _f(rng, (m, 1), dev), _f(rng, (n,), dev, -1.0, 1.0)
+    os = {"f32": None, "scalar": 0.0621,
+          "vector": _f(rng, (1, n), dev, 0.02, 0.09)}[out_kind]
+    before = _build.COUNTS.get("conv_pe_w4", 0)
+    args = (a, q4.packed, asc, q4.scale, q4.zero, bias, "relu", os)
+    got = conv_pe.matmul_int4_fused(*args)
+    assert _build.COUNTS["conv_pe_w4"] == before + 1
+    _check(got, conv_pe.matmul_int4_fused_plain(*args))
+
+
+@pytest.mark.parametrize("res_dtype,mid,os", [
+    (torch.float32, None, None), (torch.float32, 0.0377, None),
+    (torch.int8, 0.0377, 0.0519)])
+def test_conv_pe_w4_residual(dev, res_dtype, mid, os):
+    """The residual variant: the LM's f32 residual stream (dynamic chain or
+    static mid_scale qdq) and an int8 operand requantized."""
+    rng = np.random.default_rng(7)
+    m, k, n = 12, 1536, 1536
+    a, q4 = _w4(rng, dev, m, k, n, 64)
+    r = (_q(rng, (m, n), dev) if res_dtype == torch.int8 else
+         torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(dev))
+    kw = dict(residual=r, res_scale=1.0 if mid is None else 0.031,
+              mid_scale=mid, add_act="none")
+    before = _build.COUNTS.get("conv_pe_w4_res", 0)
+    got = conv_pe.matmul_int4_fused(a, q4.packed, 0.0173, q4.scale, q4.zero,
+                                    None, "none", os, **kw)
+    assert _build.COUNTS["conv_pe_w4_res"] == before + 1
+    _check(got, conv_pe.matmul_int4_fused_plain(
+        a, q4.packed, 0.0173, q4.scale, q4.zero, None, "none", os, **kw))
+
+
+@pytest.mark.parametrize("dtype,trailing", [(torch.bfloat16, (2, 128)),
+                                            (torch.float32, (3, 5))])
+def test_paged_gather(dev, dtype, trailing):
+    """Gather through a table with a clipped sentinel row (the ops wrapper
+    clips; here the entries are already in range), bf16 pages of 16-byte
+    multiples and f32 pages that are not."""
+    n, p = 9, 16 if dtype == torch.bfloat16 else 3
+    pool = torch.randn((n, p) + trailing, device=dev).to(dtype)
+    tables = torch.tensor([[3, 0, 8], [8, 8, 8], [5, 2, 7]],
+                          dtype=torch.int32, device=dev)
+    before = _build.COUNTS.get("paged_gather", 0)
+    got = flash_attn.paged_gather(pool, tables)
+    assert _build.COUNTS["paged_gather"] == before + 1
+    _check(got, flash_attn.paged_gather_plain(pool, tables))
+
+
 def test_wrapper_rejects_bad_operands(dev):
     rng = np.random.default_rng(0)
     a = _q(rng, (8, 16), dev)
@@ -205,3 +269,15 @@ def test_wrapper_rejects_bad_operands(dev):
                                  mid_scale=0.1, residual=_q(
                                      rng, (2, 8, 9), dev).transpose(1, 2),
                                  add_scale=0.1)
+    a, q4 = _w4(rng, dev, 4, 64, 16, 64)
+    with pytest.raises(ValueError):
+        conv_pe.matmul_int4_fused(a, q4.packed, 1.0, q4.scale.float(),
+                                  q4.zero)
+    with pytest.raises(ValueError):             # group size 2: not a x4
+        conv_pe.matmul_int4_fused(a, q4.packed, 1.0,
+                                  q4.scale.repeat(32, 1), q4.zero.repeat(
+                                      32, 1))
+    with pytest.raises(ValueError):
+        flash_attn.paged_gather(torch.zeros(4, 2, 8, device=dev),
+                                torch.zeros(2, 2, dtype=torch.int64,
+                                            device=dev))
