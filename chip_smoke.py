@@ -51,7 +51,20 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      served ids must equal the backend="ref" engine's and the dense-KV
      engine's; then the same trace under quant="w8a8" (int8 Conv PE), with
      its int8 GEMMs timed at the LM's shapes, equal to its ref run;
-  9. one JSON line with every kernel's launches, error and times, then the
+  9. falcon-mamba-7b at full width (64 mamba layers, d 4096, d_inner 8192,
+     ssm_state 16, conv_kernel 4, dt_rank 256, vocab 65024, untied head),
+     seeded weights, served on the eager SSM path by
+     ServeEngine(quant="w8a8", backend="cuda", batch_size=4, max_seq=128,
+     prefill_len=64, decode_burst=4) (dense; no calibration): the kernel
+     phases of the causal temporal conv (dwc1d, per prefill, against
+     F.conv1d + F.silu) and of the int8 Conv PE at the four mamba
+     projection shapes (per decode step and per prefill, per-token
+     a_scale), then the 8-request trace with the counters zeroed around it
+     (256 conv_pe per decode step; 256 conv_pe + 64 dwc1d per prefill),
+     its ids equal to the backend="ref" engine's, the trace 3 times more
+     for steady tokens/s and latency, and one profiled prefill and decode
+     step;
+ 10. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -102,6 +115,8 @@ KERNELS = {
                        "src/repro/kernels/conv_pe.py:208"),
     "paged_gather": ("src/repro_torch/csrc/paged_gather.cu",
                      "src/repro/kernels/flash_attn.py:110"),
+    "dwc1d": ("src/repro_torch/csrc/dwc_pe.cu",
+              "src/repro/kernels/dwc_pe.py:157"),
 }
 # launches per program run of each path
 PER_RUN = {
@@ -127,6 +142,12 @@ LM_PER_LAYER = {
     "w8a8": {"decode": {"conv_pe": 2, "conv_pe_res": 2, "paged_gather": 2},
              "prefill": {"conv_pe": 2, "conv_pe_res": 2}},
 }
+# the SSM phase: falcon-mamba-7b on the eager path, w8a8, dense
+SSM = dict(arch="falcon-mamba-7b", batch=4, max_seq=128, prefill_len=64,
+           burst=4, requests=8, new_tokens=32, prompt_lens=(16, 64),
+           trials=3)
+SSM_PER_LAYER = {"decode": {"conv_pe": 4},
+                 "prefill": {"conv_pe": 4, "dwc1d": 1}}
 # standalone avgpool2d shapes: (x shape, window, stride)
 AVGPOOL = (((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1))
 SWEEP_HW, SWEEP_BATCH = 64, 2
@@ -212,6 +233,8 @@ def call_ops(name: str, args, kwargs, out):
     if name == "paged_gather":
         return 0.0, PEAK_INT8                  # a copy: bytes only
     a, w = args[0], args[1]
+    if name == "dwc1d":                        # a multiply and an add a tap
+        return 2.0 * w.shape[0] * out.numel(), PEAK_F32
     if name.startswith("conv_pe_w4"):
         m, k = a.shape                         # int4 x int8 multiply-adds
         return 2.0 * m * k * w.shape[1], PEAK_INT8
@@ -263,6 +286,15 @@ def library_fn(torch, name: str, kern, args, kwargs):
     if name == "avgpool2d":
         xf = p["x"].to(torch.float32).permute(0, 3, 1, 2)  # channels_last
         return lambda: F.avg_pool2d(xf, p["window"], p["stride"])
+    if name == "dwc1d":
+        # cuDNN's grouped conv1d over [B, C, L] (the layout prepared
+        # outside), k-1 zeros each side, the first L outputs causal
+        w, l = p["w"], p["x"].shape[1]
+        xc = p["x"].permute(0, 2, 1).contiguous()
+        wc = w.t().contiguous()[:, None, :]
+        act = act_fn(p["act"])
+        return lambda: act(F.conv1d(xc, wc, p["bias"], padding=w.shape[0] - 1,
+                                    groups=w.shape[1])[..., :l])
 
     def epilogue(acc, a_scale, w_scale, bias, act, out_scale):
         x = acc.to(torch.float32) * a_scale * w_scale
@@ -364,6 +396,7 @@ def _wrappers():
         "conv_pe_pool_res": (conv_pe.matmul_int8_pool,
                              conv_pe.matmul_int8_pool_plain),
         "dwc": (dwc_pe.dwc2d, dwc_pe.dwc2d_plain),
+        "dwc1d": (dwc_pe.dwc1d_causal, dwc_pe.dwc1d_causal_plain),
         "low_channel": (low_channel.low_channel_conv,
                         low_channel.low_channel_conv_plain),
         "low_channel_max": (low_channel.low_channel_conv,
@@ -382,7 +415,8 @@ def capture_calls(torch, run):
     calls = {k: [] for k in KERNELS}
     patched = [(conv_pe, "matmul_int8_fused"), (conv_pe, "matmul_int8_pool"),
                (conv_pe, "matmul_int4_fused"), (flash_attn, "paged_gather"),
-               (dwc_pe, "dwc2d"), (low_channel, "low_channel_conv"),
+               (dwc_pe, "dwc2d"), (dwc_pe, "dwc1d_causal"),
+               (low_channel, "low_channel_conv"),
                (misc_pe, "misc_add"), (misc_pe, "avgpool2d")]
     saved = {(m, f): getattr(m, f) for m, f in patched}
 
@@ -399,7 +433,8 @@ def capture_calls(torch, run):
         if fn == "low_channel_conv":
             return ("low_channel_max" if kwargs.get("pool", "none") == "max"
                     else "low_channel")
-        return {"dwc2d": "dwc", "misc_add": "misc_add",
+        return {"dwc2d": "dwc", "dwc1d_causal": "dwc1d",
+                "misc_add": "misc_add",
                 "avgpool2d": "avgpool2d", "paged_gather": "paged_gather"}[fn]
 
     def recorder(mod, fn):
@@ -780,13 +815,15 @@ def zoo_sweep(torch, eng, ref_eng):
 # The LM path: qwen2-1.5b served by ServeEngine
 # ---------------------------------------------------------------------------
 
-def lm_inputs(arch):
-    """The calibration batch and the request trace (numpy seed 0)."""
+def lm_inputs(arch, cfg=LM):
+    """The calibration batch (None without one) and the request trace
+    (numpy seed 0)."""
     import numpy as np
     rng = np.random.default_rng(0)
-    calib = rng.integers(0, arch.vocab_size, LM["calib"]).astype(np.int32)
-    lo, hi = LM["prompt_lens"]
-    lens = rng.integers(lo, hi + 1, LM["requests"])
+    calib = (rng.integers(0, arch.vocab_size, cfg["calib"]).astype(np.int32)
+             if "calib" in cfg else None)
+    lo, hi = cfg["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, cfg["requests"])
     prompts = [rng.integers(0, arch.vocab_size, n).astype(np.int32)
                for n in lens]
     return calib, prompts
@@ -829,7 +866,7 @@ def check_lm_counts(label, counts, per_layer, layers, prefills, steps):
         fail(f"{label}: launches of kernels off its path: {extra}")
 
 
-def lm_serve(torch, engine, prompts, label, per_layer=None):
+def lm_serve(torch, engine, prompts, label, per_layer=None, cfg=LM):
     """The trace through submit / run, with the launch counters zeroed just
     before and read just after.  Returns the ids [requests, new tokens],
     the counts and the tokens/s."""
@@ -842,7 +879,7 @@ def lm_serve(torch, engine, prompts, label, per_layer=None):
     torch.cuda.synchronize()
     _build.reset_counts()
     t0 = time.perf_counter()
-    tickets = [engine.submit(p, LM["new_tokens"]) for p in prompts]
+    tickets = [engine.submit(p, cfg["new_tokens"]) for p in prompts]
     res = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -852,7 +889,7 @@ def lm_serve(torch, engine, prompts, label, per_layer=None):
     if not all(isinstance(t, int) for t in tickets):
         fail(f"{label}: a request was rejected")
     ids = np.stack([res[t] for t in tickets])
-    if ids.shape != (len(prompts), LM["new_tokens"]) or ids.min() < 0 \
+    if ids.shape != (len(prompts), cfg["new_tokens"]) or ids.min() < 0 \
             or ids.max() >= engine.arch.vocab_size:
         fail(f"{label}: ids of shape {ids.shape} in "
              f"[{ids.min()}, {ids.max()}]")
@@ -863,7 +900,7 @@ def lm_serve(torch, engine, prompts, label, per_layer=None):
         fail(f"{label}: the ref backend launched kernels: {counts}")
     tps = ids.size / wall
     lat = engine.latency.percentiles()
-    log(f"serve {label}: {len(prompts)} requests x {LM['new_tokens']} "
+    log(f"serve {label}: {len(prompts)} requests x {cfg['new_tokens']} "
         f"tokens in {wall:.4f} s = {tps:.2f} tokens/s, p50 "
         f"{lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms, {prefills} "
         f"prefills + {steps} decode steps, launches "
@@ -901,27 +938,34 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label):
             log_kernel(f"{name} ({label})", r, per="prefill")
 
 
-def lm_profile(torch, engine, prompts):
-    """Where a decode step's time goes: its wall time (median of 5, host
-    clock around a synchronized step), the host time to enqueue it, and
-    the device time per kernel (torch.profiler) of one step and of one
-    prefill, on a paged cache whose table holds every block."""
+def lm_profile(torch, engine, prompts, cfg=LM):
+    """Where a decode step's and a prefill's time goes: each one's wall
+    time (median of 5 decode steps, of 3 prefills; host clock around a
+    synchronized call), the host time to enqueue it, and the device time
+    per kernel (torch.profiler).  The compiled paged path prefills on a
+    cache whose table holds every block; the eager path on a fresh dense
+    cache, merged as the engine does."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    b, plen, dev = engine.batch, LM["prefill_len"], engine.device
+    b, plen, dev = engine.batch, cfg["prefill_len"], engine.device
     toks = np.zeros((b, plen), np.int32)
     for i, p in enumerate(prompts[:b]):
         toks[i, plen - len(p):] = p
     toks = torch.from_numpy(toks).to(dev)
     mask = torch.ones(b, dtype=torch.bool, device=dev)
-    program = engine.prefill_program()
 
-    def fresh():
+    def prefill():
         cache = engine._empty_cache()
+        if not engine.compiled:
+            return engine._prefill_eager(cache, toks, mask)
         cache["tables"] = torch.arange(
             b * engine.kv_pages, dtype=torch.int32, device=dev).reshape(
             b, engine.kv_pages)
-        logits, cache = engine._prefill_paged(program, cache, toks, mask)
+        return engine._prefill_paged(engine.prefill_program(), cache, toks,
+                                     mask)
+
+    def fresh():
+        logits, cache = prefill()
         return cache, torch.argmax(logits[:, -1], -1)[:, None].to(
             torch.int32)
 
@@ -938,21 +982,44 @@ def lm_profile(torch, engine, prompts):
             log("torch.profiler reported no device time; profiling again")
         fail("torch.profiler reported no device time in three traces")
 
-    with torch.inference_mode():
-        cache, cur = fresh()
+    def clocked(fn, n):
         walls, enqueue = [], []
-        for _ in range(5):
+        for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = engine._decode_step(cache, cur)
+            out = fn()
             enqueue.append((time.perf_counter() - t0) * 1e6)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e6)
+        return out, float(np.median(walls)), float(np.median(enqueue))
+
+    with torch.inference_mode():
+        cache, cur = fresh()
+        state = {"cache": cache}
+
+        def step():
+            logits, state["cache"] = engine._decode_step(state["cache"], cur)
+            return logits
+        logits, dwall, denq = clocked(step, 5)
         if not torch.isfinite(logits).all():
             fail("non-finite decode logits")
-        dec = traced(lambda: engine._decode_step(cache, cur))
+        dec = traced(step)
+        (logits, _), pwall, penq = clocked(prefill, 3)
+        if not torch.isfinite(logits).all():
+            fail("non-finite prefill logits")
         pre = traced(fresh)
-    return (float(np.median(walls)), float(np.median(enqueue)), dec, pre)
+    return {"decode step": (dwall, denq, dec), "prefill": (pwall, penq, pre)}
+
+
+def log_profile(label, prof):
+    for what, (wall, enq, per) in prof.items():
+        busy = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        log(f"profile {label} {what}: device {busy:.1f} us, wall {wall:.1f} "
+            f"us (median), host enqueue {enq:.1f} us, device busy "
+            f"{100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%; "
+            f"top device time: "
+            + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top))
 
 
 def lm_path(torch, results, add):
@@ -981,27 +1048,8 @@ def lm_path(torch, results, add):
     ids, counts, _ = lm_serve(torch, engine, prompts, "w4a8/cuda/paged",
                               LM_PER_LAYER["w4a8"])
     add(counts)
-    rates, lats = [], []
-    for _ in range(TRIALS):
-        engine.latency.samples_ms = []
-        rates.append(_steady_once(torch, engine, prompts))
-        lats.extend(engine.latency.samples_ms)
-    lat = np.asarray(lats)
-    log(f"serve steady w4a8/cuda/paged: {TRIALS} x {len(prompts)} requests, "
-        f"median {np.median(rates):.2f} tokens/s (min {min(rates):.2f}, max "
-        f"{max(rates):.2f}), p50 {np.percentile(lat, 50):.3f} ms, p99 "
-        f"{np.percentile(lat, 99):.3f} ms over {lat.size} requests")
-    wall, enq, dec, pre = lm_profile(torch, engine, prompts)
-    for what, per, ref_us in (("decode step", dec, wall),
-                              ("prefill", pre, None)):
-        busy = sum(per.values())
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-        share = (f", wall {ref_us:.1f} us (median of 5), host enqueue "
-                 f"{enq:.1f} us, device busy {100 * busy / ref_us:.1f}%, "
-                 f"idle {100 * (1 - busy / ref_us):.1f}%"
-                 if ref_us else "")
-        log(f"profile lm {what}: device {busy:.1f} us{share}; top device "
-            f"time: " + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top))
+    steady_lm(torch, engine, prompts, "w4a8/cuda/paged", TRIALS)
+    log_profile("lm", lm_profile(torch, engine, prompts))
     del engine
     torch.cuda.empty_cache()
 
@@ -1042,15 +1090,137 @@ def lm_path(torch, results, add):
     torch.cuda.empty_cache()
 
 
-def _steady_once(torch, engine, prompts):
+# ---------------------------------------------------------------------------
+# The SSM path: falcon-mamba-7b served by ServeEngine on the eager path
+# ---------------------------------------------------------------------------
+
+def ssm_engine(torch, arch, params, backend):
+    """A w8a8 ServeEngine of the SSM path (dense, eager, no calibration);
+    its quantized tree is built outside any clock."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    engine = ServeEngine(
+        arch, params, EngineConfig(quant="w8a8", backend=backend),
+        batch_size=SSM["batch"], max_seq=SSM["max_seq"],
+        prefill_len=SSM["prefill_len"], decode_burst=SSM["burst"])
+    torch.cuda.synchronize()
+    if engine.compiled or engine.calib_id is not None:
+        fail(f"{arch.name}: expected the eager path without calibration")
+    log(f"ssm engine w8a8/{backend}/dense: quantize "
+        f"{time.perf_counter() - t0:.2f} s, lowering blockers "
+        f"{engine.stats()['lowering_blockers']}")
+    return engine
+
+
+def ssm_kernel_phases(torch, engine, prompts, results):
+    """Every kernel call of one prefill and one decode step (one request
+    per slot, one new token), each held bitwise against its plain version:
+    the causal conv timed per prefill (into `results`), the int8 Conv PE
+    timed per projection shape, per decode step (M = batch) and per
+    prefill (M = batch x prefill_len)."""
+    calls = capture_calls(torch, lambda: engine.generate(
+        prompts[:SSM["batch"]], max_new_tokens=1))
+    layers = engine.arch.n_layers
+    b, m_pre = SSM["batch"], SSM["batch"] * SSM["prefill_len"]
+    conv = calls["dwc1d"]
+    if len(conv) != layers or any(
+            tuple(a[0].shape) != (b, SSM["prefill_len"],
+                                  engine.arch.d_inner) for a, _ in conv):
+        fail(f"dwc1d: {len(conv)} calls of shapes "
+             f"{sorted({tuple(a[0].shape) for a, _ in conv})}, want "
+             f"{layers} of one prefill's")
+    with torch.inference_mode():
+        r = kernel_phase(torch, "dwc1d", conv)
+    results["dwc1d"] = r
+    log_kernel("dwc1d (falcon-mamba)", r, per="prefill")
+    groups = {}
+    for a, k in calls["conv_pe"]:
+        groups.setdefault((a[0].shape[0],) + tuple(a[1].shape), []).append(
+            (a, k))
+    for (m, kk, n), grp in sorted(groups.items()):
+        if m not in (b, m_pre) or len(grp) != layers:
+            fail(f"conv_pe (falcon-mamba): {len(grp)} calls at M={m} "
+                 f"K={kk} N={n}, want {layers} at M={b} or {m_pre}")
+        dec = m == b
+        with torch.inference_mode():
+            r = kernel_phase(torch, "conv_pe", grp,
+                             reps=REPS if dec else 5,
+                             plain_reps=REPS if dec else 3)
+        log_kernel(f"conv_pe (falcon-mamba M={m} K={kk} N={n})", r,
+                   per="decode step" if dec else "prefill")
+    if len(groups) != 8:
+        fail(f"conv_pe (falcon-mamba): {len(groups)} shapes, want 4 "
+             f"projections x decode and prefill")
+
+
+def ssm_path(torch, results, add):
+    """falcon-mamba-7b at full width on the eager SSM path (phase 9)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arch = configs.get_arch(SSM["arch"])
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaf_tensors(params))
+    log(f"ssm {arch.name}: {arch.n_layers} mamba layers, d {arch.d_model}, "
+        f"d_inner {arch.d_inner}, ssm_state {arch.ssm_state}, conv_kernel "
+        f"{arch.conv_kernel}, vocab {arch.vocab_size}: {n} float params in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _, prompts = lm_inputs(arch, SSM)
+    label = "falcon-mamba w8a8/cuda/dense"
+    engine = ssm_engine(torch, arch, params, "cuda")
+    ssm_kernel_phases(torch, engine, prompts, results)
+    ids, counts, _ = lm_serve(torch, engine, prompts, label, SSM_PER_LAYER,
+                              SSM)
+    add(counts)
+    steady_lm(torch, engine, prompts, label, SSM["trials"], SSM)
+    log_profile("ssm", lm_profile(torch, engine, prompts, SSM))
+    log(f"ssm peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    del engine
+    torch.cuda.empty_cache()
+    other = ssm_engine(torch, arch, params, "ref")
+    got, _, _ = lm_serve(torch, other, prompts,
+                         "falcon-mamba w8a8/ref/dense", None, SSM)
+    if not np.array_equal(got, ids):
+        fail(f"falcon-mamba CUDA ids differ from backend='ref': "
+             f"{int((got != ids).sum())} of {ids.size}")
+    log(f"ids falcon-mamba w8a8: CUDA equal to backend='ref' on the card "
+        f"({ids.size} tokens)")
+    del other, params
+    torch.cuda.empty_cache()
+
+
+def _steady_once(torch, engine, prompts, cfg=LM):
     """One more pass of the trace, not counted: tokens/s."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in prompts:
-        engine.submit(p, LM["new_tokens"])
+        engine.submit(p, cfg["new_tokens"])
     engine.run()
     torch.cuda.synchronize()
-    return len(prompts) * LM["new_tokens"] / (time.perf_counter() - t0)
+    return len(prompts) * cfg["new_tokens"] / (time.perf_counter() - t0)
+
+
+def steady_lm(torch, engine, prompts, label, trials, cfg=LM):
+    """The trace served `trials` more times (not counted): median tokens/s,
+    latency percentiles over every request."""
+    import numpy as np
+    rates, lats = [], []
+    for _ in range(trials):
+        engine.latency.samples_ms = []
+        rates.append(_steady_once(torch, engine, prompts, cfg))
+        lats.extend(engine.latency.samples_ms)
+    lat = np.asarray(lats)
+    log(f"serve steady {label}: {trials} x {len(prompts)} requests, median "
+        f"{np.median(rates):.2f} tokens/s (min {min(rates):.2f}, max "
+        f"{max(rates):.2f}), p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms over {lat.size} requests")
 
 
 def _leaf_tensors(tree):
@@ -1139,9 +1309,13 @@ def main() -> int:
 
     # -- 8. qwen2-1.5b served ---------------------------------------------------
     lm_path(torch, results, add)
+    torch.cuda.empty_cache()
+
+    # -- 9. falcon-mamba-7b served on the eager SSM path -----------------------
+    ssm_path(torch, results, add)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 9. the result lines ---------------------------------------------------
+    # -- 10. the result lines --------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

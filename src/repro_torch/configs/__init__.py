@@ -5,7 +5,8 @@ port serves, plus the reduced smoke variants its CPU tests run.
     reduced(get_arch("qwen2-1.5b"))   # 2 layers, d=128 (the tests' size)
 
 The CNN zoo lives in configs/cnn_zoo.py.  Archs join the registry with the
-slice that serves them (gemma2-2b needs local ring layers, softcaps and
+slice that serves them: qwen2-1.5b on the compiled programs, falcon-mamba-7b
+on the eager SSM path (gemma2-2b needs local ring layers, softcaps and
 post-norms, which a later slice ports).
 """
 from __future__ import annotations
@@ -13,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
+from repro_torch.configs.falcon_mamba_7b import ARCH as FALCON_MAMBA_7B
 from repro_torch.configs.qwen2_1_5b import ARCH as QWEN2_1_5B
 from repro_torch.core.config import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [QWEN2_1_5B]}
+ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [QWEN2_1_5B,
+                                                    FALCON_MAMBA_7B]}
 
 
 def get_arch(name: str) -> ArchConfig:

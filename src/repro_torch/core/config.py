@@ -1,7 +1,8 @@
 """Configuration dataclasses (the port's copy of repro.core.config).
 
   * ArchConfig           -- an LM architecture (the attention-only dense
-                            archs the engine IR lowers).
+                            archs the engine IR lowers, and the mamba
+                            archs served on the eager path).
   * CNNConfig / ConvSpec -- a CNN from the paper's own evaluation zoo.
   * EngineConfig         -- the DPUV4E engine feature set.
 
@@ -9,8 +10,9 @@ EngineConfig keeps the knobs the served paths read: the quant mode (with
 the int4 group size of w4a8), the kernel backend and the KV-cache dtype.
 The reference's other fields (XVDPU baseline, MoE dispatch, Pallas
 interpret mode) join with the slices that run them; ArchConfig keeps the
-fields the transformer lowering reads, and the SSM / MoE / encoder fields
-only as far as `lowering_blockers` needs them to refuse an arch.
+fields the transformer lowering and the mamba mixer read, and the MoE /
+encoder fields only as far as `lowering_blockers` needs them to refuse an
+arch.
 """
 from __future__ import annotations
 
@@ -50,6 +52,11 @@ class ArchConfig:
     mlp_gated: bool = True           # False: plain up/act/down
     tie_embeddings: bool = True
 
+    # --- SSM (mamba1) --------------------------------------------------------
+    ssm_state: int = 0               # mamba1 d_state
+    ssm_expand: int = 2              # mamba d_inner = expand * d_model
+    conv_kernel: int = 4             # mamba / RG-LRU temporal conv width
+
     # --- what the engine IR does not lower (lowering_blockers) --------------
     n_experts: int = 0
     encoder_layers: int = 0
@@ -61,6 +68,9 @@ class ArchConfig:
     emb_scale: bool = False          # gemma2 scales embeddings by sqrt(d)
     max_seq_len: int = 524288        # RoPE table cap
 
+    # --- paper-technique applicability metadata ------------------------------
+    subquadratic: bool = False       # may run long_500k
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -68,6 +78,10 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def layer_kind(self, i: int) -> str:
         return self.block_pattern[i % len(self.block_pattern)]

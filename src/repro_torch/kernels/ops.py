@@ -3,9 +3,10 @@
 Two backends (EngineConfig.backend):
   * "ref"  -- plain PyTorch (kernels/ref.py + the _epilogue chain): the
               calibration path and the bit-exact reference;
-  * "cuda" -- the hand-written Hopper kernels (conv_pe, conv_pe_w4, dwc_pe,
-              low_channel, misc_pe, paged_gather), whose wrappers launch on
-              CUDA tensors and run their plain versions on CPU tensors.
+  * "cuda" -- the hand-written Hopper kernels (conv_pe, conv_pe_w4, dwc_pe
+              with its 1-D causal conv, low_channel, misc_pe,
+              paged_gather), whose wrappers launch on CUDA tensors and run
+              their plain versions on CPU tensors.
 
 The LM projections dispatch on the weight container: a QTensor runs the
 int8 Conv PE, a Q4Tensor (quant="w4a8") the int4 one.  `linear_group`
@@ -76,9 +77,12 @@ def _gemm_operands(x, kdim_w: int):
     kdim = xv.shape[-1]
     if kdim != kdim_w:
         raise ValueError(f"GEMM input K={kdim}, weight K={kdim_w}")
-    x2 = xv.reshape(math.prod(lead), kdim)
+    # contiguous rows: a reshape of a permuted or sliced input (an einsum
+    # output, a column slice) can be a strided view, and quantizing
+    # keeps the input's layout
+    x2 = xv.reshape(math.prod(lead), kdim).contiguous()
     if static:
-        return lead, x2.contiguous(), float(x.scale)
+        return lead, x2, float(x.scale)
     xq = quantize_act_dynamic(x2, per_token=True)
     return lead, xq.q, xq.scale
 
@@ -449,6 +453,18 @@ def dwc2d(x, w, bias: Optional[torch.Tensor], stride: int, padding: str,
     return ref.dwc2d(xin, w_in, bias, stride, act, a_scale=a_scale,
                      w_scale=w_scale, out_scale=out_scale,
                      out_dtype=out_dtype)
+
+
+def dwc1d_causal(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], act: str,
+                 cfg: EngineConfig) -> torch.Tensor:
+    """Causal temporal depthwise conv: x [B, L, C] float, w [k, C], out in
+    x's dtype.  The reference pads C to its 128-lane width for the Pallas
+    kernel; the CUDA kernel takes any C."""
+    if _kernels(cfg):
+        return dwc_pe.dwc1d_causal(x.contiguous(), w, bias, act,
+                                   out_dtype=x.dtype)
+    return ref.dwc1d_causal(x, w, bias, act, out_dtype=x.dtype)
 
 
 def first_layer_conv(x, w, bias: Optional[torch.Tensor], stride: int,

@@ -165,6 +165,26 @@ def dwc2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     return _requant(act_fn(act)(xf), out_scale, out_dtype)
 
 
+def dwc1d_causal(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, act: str = "none",
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """Causal depthwise temporal conv (the mamba / RG-LRU frontend).
+
+    x [B, L, C] float, w [k, C], bias [C].  The taps add in order,
+    `acc + x * w` in f32 over a zero causal pad, then the bias, then the
+    act."""
+    k = w.shape[0]
+    l = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        acc = acc + xp[:, i:i + l, :].to(torch.float32) * w[i].to(
+            torch.float32)
+    if bias is not None:
+        acc = acc + bias
+    return act_fn(act)(acc).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # C5: Low-Channel Conv Unit -- first-layer conv (small IC)
 # ---------------------------------------------------------------------------

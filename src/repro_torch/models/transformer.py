@@ -1,12 +1,13 @@
-"""Decoder-only LM: parameter and serving-cache schemas and the KV-cache
-helpers (the port's copy of the parts of repro.models.transformer that
-the compiled LM programs and ServeEngine call).
+"""Decoder-only LM: parameter and serving-cache schemas, the KV-cache
+helpers, and the eager mamba path (the port's copy of the parts of
+repro.models.transformer that the LM programs and ServeEngine call).
 
-The model itself runs as compiled engine programs (compiler.lower_
-transformer -> executor); the reference's eager `forward` / `prefill` /
-`decode` are a later slice.  Only attention mixers ("global" / "local"
-layers) with a dense MLP are schema'd here; SSM, recurrent and MoE layers
-raise.
+Attention archs ("global" / "local" layers with a dense MLP) run as
+compiled engine programs (compiler.lower_transformer -> executor).  Archs
+the IR does not lower run the reference's eager `forward` / `prefill` /
+`decode`; of those, mamba layers (falcon-mamba) are ported.  Recurrent
+(RG-LRU) layers, MoE and eager attention layers raise NotImplementedError
+naming the slice that brings them.
 
 The reference writes the cache with functional JAX scatters whose
 out-of-range indices are dropped (`mode="drop"`, positive sentinels).  A
@@ -14,35 +15,65 @@ torch index out of range raises on the CPU and is a device-side assert on
 the card, so every store here masks its writes explicitly (`_drop_store`)
 and updates the cache tensors IN PLACE (the reference returns new arrays;
 the serving engine threads one cache through, so nothing keeps the old
-values).
+values).  The eager mamba path is functional, like the reference: prefill
+and decode return new state tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.config import ArchConfig, EngineConfig
+from repro_torch.core.quant import QTensor
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, is_spec
 
 
-def _attention_only(arch: ArchConfig, i: int) -> str:
+def _ported_kind(arch: ArchConfig, i: int) -> str:
     kind = arch.layer_kind(i)
-    if kind not in ("global", "local"):
+    if kind not in ("global", "local", "mamba"):
         raise NotImplementedError(
-            f"{arch.name}: layer kind {kind!r} is not ported (the SSM / "
-            "recurrent mixers join with the eager long-tail slice)")
+            f"{arch.name}: layer kind {kind!r} is not ported yet (the RG-LRU "
+            "mixer joins with the recurrentgemma slice)")
     return kind
 
 
+def _eager_kind(arch: ArchConfig, i: int) -> str:
+    """The layer kind on the eager path, where only mamba is ported."""
+    kind = _ported_kind(arch, i)
+    if kind != "mamba":
+        raise NotImplementedError(
+            f"{arch.name}: eager {kind!r} attention layers are not ported "
+            "yet (the recurrentgemma slice brings local ring attention to "
+            "the eager path; attention archs serve through the compiled "
+            "programs)")
+    return kind
+
+
+def check_eager(arch: ArchConfig) -> None:
+    """Raise NotImplementedError unless every layer of `arch` runs on the
+    ported eager path."""
+    if arch.is_moe:
+        raise NotImplementedError(f"{arch.name}: MoE layers are not ported")
+    if arch.encoder_layers or arch.frontend or arch.mrope:
+        raise NotImplementedError(f"{arch.name}: encoder-decoder and "
+                                  "modality frontends are not ported")
+    for i in range(arch.n_layers):
+        _eager_kind(arch, i)
+
+
 def block_schema(arch: ArchConfig, i: int) -> dict:
-    _attention_only(arch, i)
+    kind = _ported_kind(arch, i)
     if arch.is_moe:
         raise NotImplementedError(f"{arch.name}: MoE layers are not ported")
     d = arch.d_model
-    s: Dict[str, Any] = {"norm": ParamSpec((d,), "zeros"),
-                         "attn": L.attention_schema(arch)}
+    s: Dict[str, Any] = {"norm": ParamSpec((d,), "zeros")}
+    if kind == "mamba":
+        s["mixer"] = S.mamba_schema(arch)
+        return s
+    s["attn"] = L.attention_schema(arch)
     if arch.post_norms:
         s["post_attn_norm"] = ParamSpec((d,), "zeros")
     if arch.d_ff > 0:
@@ -78,12 +109,17 @@ def _kv_dtype(eng: EngineConfig) -> torch.dtype:
 def cache_schema(arch: ArchConfig, batch: int, max_seq: int,
                  eng: EngineConfig) -> dict:
     """Dense cache schema: per layer k / v [B, S, Hkv, D] (S = the local
-    window for ring layers), plus the position."""
+    window for ring layers) or a mamba layer's state (conv bf16
+    [B, k-1, di], ssm f32 [B, di, ds]), plus the position."""
     kv_dt = _kv_dtype(eng)
     nkv, hd = arch.n_kv_heads, arch.head_dim
     per_layer = []
     for i in range(arch.n_layers):
-        kind = _attention_only(arch, i)
+        kind = _ported_kind(arch, i)
+        if kind == "mamba":
+            per_layer.append(S.mamba_state_schema(arch, batch,
+                                                  torch.bfloat16))
+            continue
         s = min(arch.local_window, max_seq) if kind == "local" else max_seq
         per_layer.append({
             "k": ParamSpec((batch, s, nkv, hd), "zeros", kv_dt),
@@ -114,7 +150,11 @@ def paged_cache_schema(arch: ArchConfig, batch: int, max_seq: int,
     nkv, hd = arch.n_kv_heads, arch.head_dim
     per_layer = []
     for i in range(arch.n_layers):
-        if _attention_only(arch, i) == "local":
+        kind = _ported_kind(arch, i)
+        if kind == "mamba":
+            raise ValueError(f"{arch.name}: a paged cache holds attention "
+                             "KV; mamba state stays dense")
+        if kind == "local":
             s = min(arch.local_window, max_seq)
             shape = (batch, s, nkv, hd)
         else:
@@ -255,3 +295,109 @@ def _paged_prefill_store(entry: dict, k, v, tables: torch.Tensor,
         _drop_store(fp, flat.reshape(-1), valid.reshape(-1),
                     val.reshape(b * l, *val.shape[2:]))
     return entry
+
+
+# ---------------------------------------------------------------------------
+# The eager path (archs the engine IR does not lower): mamba layers
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    emb = params["embed"]
+    idx = tokens.to(torch.int64)
+    if isinstance(emb, QTensor):
+        x = (emb.q[idx].to(torch.float32) * emb.scale[idx]).to(dtype)
+    else:
+        x = emb[idx].to(dtype)
+    if arch.emb_scale:
+        x = x * torch.full((), arch.d_model ** 0.5, dtype=dtype,
+                           device=x.device)
+    return x
+
+
+def lm_logits(params: dict, x: torch.Tensor,
+              arch: ArchConfig) -> torch.Tensor:
+    """Logits in f32: the int8 table cast to f32 on every call, then * its
+    per-column (head) or per-row (tied embedding) scale, as the reference
+    does."""
+    xf = x.to(torch.float32)
+    if arch.tie_embeddings:
+        emb = params["embed"]
+        if isinstance(emb, QTensor):
+            logits = xf @ emb.q.to(torch.float32).t()
+            logits = logits * emb.scale.reshape(1, 1, -1)
+        else:
+            logits = xf @ emb.to(torch.float32).t()
+    else:
+        head = params["head"]
+        if isinstance(head, QTensor):
+            logits = xf @ head.q.to(torch.float32)
+            logits = logits * head.scale.reshape(1, 1, -1)
+        else:
+            logits = xf @ head.to(torch.float32)
+    if arch.final_softcap > 0:
+        logits = torch.tanh(logits / arch.final_softcap) * arch.final_softcap
+    return logits
+
+
+def block_apply(p: dict, x: torch.Tensor, arch: ArchConfig,
+                eng: EngineConfig, state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One residual mamba block, full-sequence (the callers check the
+    layer kind with `_eager_kind`).  Returns (x, new_state)."""
+    h, new_state = S.mamba_apply(
+        p["mixer"], L.rms_norm(x, p["norm"], arch.norm_eps), arch, eng,
+        state=state)
+    return x + h, new_state
+
+
+def forward(params: dict, batch: dict, arch: ArchConfig, eng: EngineConfig,
+            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Full-sequence logits [B, L, V] f32 and the aux loss (0 without
+    MoE)."""
+    x = embed_tokens(params, batch["tokens"], arch, compute_dtype)
+    for i, p in enumerate(params["blocks"]):
+        _eager_kind(arch, i)
+        x, _ = block_apply(p, x, arch, eng)
+    x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
+    return lm_logits(params, x, arch), torch.zeros((), device=x.device)
+
+
+def prefill(params: dict, cache: dict, batch: dict, arch: ArchConfig,
+            eng: EngineConfig, compute_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, dict]:
+    """Run the prompt, fill the cache.  Returns (last-token logits
+    [B, 1, V], the new cache)."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, tokens, arch, compute_dtype)
+    new_layers = []
+    for i, p in enumerate(params["blocks"]):
+        _eager_kind(arch, i)
+        x, st = block_apply(p, x, arch, eng, state=cache["layers"][i])
+        new_layers.append(st)
+    x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
+    logits = lm_logits(params, x[:, -1:], arch)
+    pos = torch.full((), tokens.shape[1], dtype=torch.int32,
+                     device=tokens.device)
+    return logits, {"layers": new_layers, "pos": pos}
+
+
+def decode(params: dict, cache: dict, tokens: torch.Tensor, arch: ArchConfig,
+           eng: EngineConfig, compute_dtype=torch.bfloat16
+           ) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  tokens: [B, 1].  Returns (logits [B, 1, V], the
+    new cache); cache["pos"] is a scalar or a [B] vector of per-slot
+    positions."""
+    x = embed_tokens(params, tokens, arch, compute_dtype)
+    new_layers = []
+    for i, p in enumerate(params["blocks"]):
+        _eager_kind(arch, i)
+        hin = L.rms_norm(x, p["norm"], arch.norm_eps)
+        h, st = S.mamba_decode(p["mixer"], hin, arch, eng,
+                               cache["layers"][i])
+        new_layers.append(st)
+        x = x + h
+    x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
+    return lm_logits(params, x, arch), {"layers": new_layers,
+                                        "pos": cache["pos"] + 1}

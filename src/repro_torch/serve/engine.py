@@ -26,10 +26,18 @@ ceil((prompt + max_new_tokens) / page_size) blocks of a BlockAllocator,
 and admission gates on free blocks.  Paged decode reads its KV through
 the paged-gather kernel, a pure copy, so its ids equal dense decode's.
 
+An arch the IR does not lower (`compiler.lowering_blockers`; ported:
+mamba, e.g. falcon-mamba-7b) falls back to the reference's eager path:
+`T.prefill` on a fresh cache, merged into the live cache row by row for
+the refilled slots (`_merge`, which casts fresh state to the live cache's
+dtype), and `T.decode` per step.  That path is dense only (paged KV raises
+ValueError, as in the reference) and takes no calibration (no digest is
+hashed when both paths are eager).
+
 The reference jits prefill, decode and the cache merge; the port runs them
 eagerly.  Not ported yet, each raising NotImplementedError: `mesh=`
-(multi-device serving), `draft_len` (speculative bursts), `prefix_sharing`
-and the eager fallback for archs the IR does not lower.
+(multi-device serving), `draft_len` (speculative bursts) and
+`prefix_sharing`.
 """
 from __future__ import annotations
 
@@ -110,9 +118,24 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
                                "slice of the PyTorch port)")
 
 
+def _merge(old: dict, new: dict, mask: torch.Tensor) -> dict:
+    """Scatter refilled slots' prefill state into the live cache: per-slot
+    row select on every [B, ...] tensor (fresh state cast to the live
+    tensor's dtype), per-slot position."""
+    def sel(o, n):
+        m = mask.reshape((mask.shape[0],) + (1,) * (o.ndim - 1))
+        return torch.where(m, n.to(o.dtype), o)
+    layers = [{k: sel(o[k], n[k]) for k in o}
+              for o, n in zip(old["layers"], new["layers"])]
+    pos = torch.where(mask, new["pos"].to(torch.int32),
+                      old["pos"].to(torch.int32))
+    return {"layers": layers, "pos": pos}
+
+
 class ServeEngine(ProgramServeBase):
-    """Greedy LM serving of an attention-only arch on `device` (the card
-    unless the caller asks for "cpu")."""
+    """Greedy LM serving on `device` (the card unless the caller asks for
+    "cpu"): compiled programs for the archs the IR lowers, the eager path
+    for the rest."""
 
     def __init__(self, arch: ArchConfig, params, eng: EngineConfig,
                  batch_size: int = 4, max_seq: int = 256,
@@ -131,12 +154,16 @@ class ServeEngine(ProgramServeBase):
         if prefix_sharing:
             raise _later("prefix sharing", "prefix-sharing")
         blockers = compiler.lowering_blockers(arch)
-        if blockers:
-            raise _later(f"eager serving of {arch.name} "
-                         f"({'; '.join(blockers)})", "eager long-tail")
+        self.compiled = not blockers
+        if not self.compiled:
+            T.check_eager(arch)
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{kv_layout!r}")
+        if kv_layout == "paged" and not self.compiled:
+            raise ValueError(
+                "paged KV / speculative decode need the compiled "
+                f"prefill+decode programs ({'; '.join(blockers)})")
         super().__init__(eng, cache_capacity=cache_capacity, cache=cache)
         self.device = torch.device(device)
         self.arch = arch
@@ -167,10 +194,12 @@ class ServeEngine(ProgramServeBase):
             self._slot_blocks: List[List[int]] = [
                 [] for _ in range(batch_size)]
         # calibration feeds the static programs of the int8-activation
-        # modes; w4a8 shares w8a8's activation scales, and the digest
-        # carries the weight mode so their programs key distinct lines
+        # modes (skipped, digest included, when both paths stay eager);
+        # w4a8 shares w8a8's activation scales, and the digest carries the
+        # weight mode so their programs key distinct lines
         batches = None
-        if calib_batches is not None and eng.quant in ("w8a8", "w4a8"):
+        if (calib_batches is not None and eng.quant in ("w8a8", "w4a8")
+                and self.compiled):
             batches = [torch.as_tensor(np.asarray(b), dtype=torch.int64,
                                        device=self.device)
                        for b in calib_batches]
@@ -277,7 +306,16 @@ class ServeEngine(ProgramServeBase):
         return logits, {"layers": layers, "tables": cache["tables"],
                         "pos": pos}
 
+    def _prefill_eager(self, cache, tokens, mask):
+        """The eager prefill of the refilled slots on a fresh cache, merged
+        into the live cache (the reference's jprefill + jmerge)."""
+        logits, fresh = T.prefill(self.params, self._empty_cache(),
+                                  {"tokens": tokens}, self.arch, self.eng)
+        return logits, _merge(cache, fresh, mask)
+
     def _decode_step(self, cache, tokens):
+        if not self.compiled:
+            return T.decode(self.params, cache, tokens, self.arch, self.eng)
         return ex.execute_decode(self.decode_program(), self.params, cache,
                                  tokens, self.eng)
 
@@ -399,9 +437,15 @@ class ServeEngine(ProgramServeBase):
         plen = self.prefill_len
         if plen is None:
             plen = max(len(p) for p, _ in sched.peek(_LM))
-        prefill = self._prefill_paged if self.paged else self._prefill_dense
-        program = self.prefill_program()
-        self.decode_program()
+        if self.compiled:
+            program = self.prefill_program()
+            self.decode_program()
+            fill = self._prefill_paged if self.paged else self._prefill_dense
+
+            def prefill(cache, toks, mask):
+                return fill(program, cache, toks, mask)
+        else:
+            prefill = self._prefill_eager
 
         cache = self._empty_cache()
         dev = self.device
@@ -455,8 +499,7 @@ class ServeEngine(ProgramServeBase):
                         cache["tables"] = torch.from_numpy(
                             self._host_tables).to(dev)
                     logits, cache = prefill(
-                        program, cache,
-                        torch.from_numpy(toks).to(dev), jmask)
+                        cache, torch.from_numpy(toks).to(dev), jmask)
                     self.serve_stats.prefill_tokens_computed += (
                         len(taken) * plen)
                     first = torch.argmax(logits[:, -1, :], dim=-1)
@@ -541,8 +584,9 @@ class ServeEngine(ProgramServeBase):
 
     def stats(self) -> Dict[str, object]:
         s = self.serve_stats
-        out = {"arch": self.arch.name, "compiled_prefill": True,
-               "compiled_decode": True, "kv_layout": self.kv_layout,
+        out = {"arch": self.arch.name, "compiled_prefill": self.compiled,
+               "compiled_decode": self.compiled,
+               "kv_layout": self.kv_layout,
                "lowering_blockers": self.lowering_blockers(),
                "calibration_digest_s": self.digest_s}
         out.update(self.cache_stats())

@@ -281,3 +281,35 @@ def test_wrapper_rejects_bad_operands(dev):
         flash_attn.paged_gather(torch.zeros(4, 2, 8, device=dev),
                                 torch.zeros(2, 2, dtype=torch.int64,
                                             device=dev))
+
+
+@pytest.mark.parametrize("b,l,c,k", [(2, 12, 40, 4), (1, 2, 33, 4),
+                                     (3, 17, 8192, 4), (2, 9, 96, 2)])
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_dwc1d_causal(dev, b, l, c, k, act, bias):
+    """The causal temporal conv: C off 32, L shorter than k, no bias; the
+    silu is torch's CUDA F.silu's formula, so the kernel equals the plain
+    version bit for bit."""
+    rng = np.random.default_rng(b * l + c + k)
+    x = torch.from_numpy(rng.normal(size=(b, l, c)).astype(np.float32)).to(
+        dev)
+    w = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)).to(dev)
+    bs = _f(rng, (c,), dev, -1.0, 1.0) if bias else None
+    before = _build.COUNTS.get("dwc1d", 0)
+    got = dwc_pe.dwc1d_causal(x, w, bs, act)
+    assert _build.COUNTS["dwc1d"] == before + 1
+    _check(got, dwc_pe.dwc1d_causal_plain(x, w, bs, act))
+    with pytest.raises(ValueError):
+        dwc_pe.dwc1d_causal(x, w, bs, "relu")
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 8192, 288), (37, 256, 288)])
+def test_conv_pe_gemm_per_token_scale(dev, m, k, n):
+    """The mamba x_proj shape (N = 288, K = 8192 at full width) with a
+    per-token a_scale [M, 1], f32 out: the eager SSM path's GEMM."""
+    rng = np.random.default_rng(m + n)
+    a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
+    asc, wsc = _f(rng, (m, 1), dev), _f(rng, (1, n), dev)
+    _check(conv_pe.matmul_int8_fused(a, b, asc, wsc),
+           conv_pe.matmul_int8_fused_plain(a, b, asc, wsc))
