@@ -42,16 +42,32 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      token batch, served by ServeEngine(quant="w4a8", backend="cuda",
      kv_layout="paged", page_size=16, batch_size=4, max_seq=128,
      prefill_len=64, decode_burst=4): the kernel phases of the int4 Conv PE
-     (plain and residual) and the paged gather at the shapes of one prefill
-     and one decode step (timed per decode step, and per prefill), then 8
-     requests of 16-64 prompt tokens and 32 new tokens each with the
-     counters zeroed around them (56 / 56 / 56 launches per decode step, 56
-     / 56 / 0 per prefill), the same trace 10 times more for steady
-     tokens/s and latency, and one profiled prefill and decode step; the
-     served ids must equal the backend="ref" engine's and the dense-KV
-     engine's; then the same trace under quant="w8a8" (int8 Conv PE), with
-     its int8 GEMMs timed at the LM's shapes, equal to its ref run;
-  9. falcon-mamba-7b at full width (64 mamba layers, d 4096, d_inner 8192,
+     (plain and residual), the paged gather and the flash attention at the
+     shapes of one prefill and one decode step (timed per decode step, and
+     per prefill), then 8 requests of 16-64 prompt tokens and 32 new tokens
+     each with the counters zeroed around them (56 / 56 / 56 launches per
+     decode step; 56 / 56 / 0 and 28 flash_attention per prefill), the same
+     trace 10 times more for steady tokens/s and latency, and one profiled
+     prefill and decode step; the served ids must equal the backend="ref"
+     engine's and the dense-KV engine's; then the same trace under
+     quant="w8a8" (int8 Conv PE), with its int8 GEMMs timed at the LM's
+     shapes, equal to its ref run;
+  9. gemma2-2b at full width (26 layers alternating local (window 4096)
+     and global, d 2304, 8 / 4 heads of 256, d_ff 9216 gated tanh-gelu,
+     vocab 256000, attention softcap 50, final softcap 30, post-norms,
+     scaled embeddings), seeded weights, on the qwen2 cell's engine and
+     trace: the flash attention held within ATTN_TOL of max|plain| against
+     its plain version and timed at one gemma2 prefill and at a 2048-token
+     shape; the int4 Conv PE, the MISC add and the paged gather held
+     bitwise at gemma2's shapes; the trace with the counters zeroed around
+     it (4 int4 GEMMs and 2 misc_add on every layer, paged_gather and
+     flash_attention on the 13 global layers only), 3 steady traces, one
+     profiled prefill and decode step; ids
+     equal to the backend="ref" engine's and the dense-KV engine's, with
+     the int8 codes of the attention-output edge of one prefill compared
+     between the backends; then the reduced gemma2 (window 64) served
+     across a ring wrap on both backends, ids equal;
+ 10. falcon-mamba-7b at full width (64 mamba layers, d 4096, d_inner 8192,
      ssm_state 16, conv_kernel 4, dt_rank 256, vocab 65024, untied head),
      seeded weights, served on the eager SSM path by
      ServeEngine(quant="w8a8", backend="cuda", batch_size=4, max_seq=128,
@@ -64,7 +80,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      its ids equal to the backend="ref" engine's, the trace 3 times more
      for steady tokens/s and latency, and one profiled prefill and decode
      step;
- 10. one JSON line with every kernel's launches, error and times, then the
+ 11. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -72,6 +88,7 @@ standard library and repro_torch.
 """
 from __future__ import annotations
 
+import gc
 import inspect
 import json
 import os
@@ -117,6 +134,8 @@ KERNELS = {
                      "src/repro/kernels/flash_attn.py:110"),
     "dwc1d": ("src/repro_torch/csrc/dwc_pe.cu",
               "src/repro/kernels/dwc_pe.py:157"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:29"),
 }
 # launches per program run of each path
 PER_RUN = {
@@ -138,10 +157,30 @@ LM = dict(arch="qwen2-1.5b", batch=4, max_seq=128, prefill_len=64,
 LM_PER_LAYER = {
     "w4a8": {"decode": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
                         "paged_gather": 2},
-             "prefill": {"conv_pe_w4": 2, "conv_pe_w4_res": 2}},
+             "prefill": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
+                         "flash_attention": 1}},
     "w8a8": {"decode": {"conv_pe": 2, "conv_pe_res": 2, "paged_gather": 2},
-             "prefill": {"conv_pe": 2, "conv_pe_res": 2}},
+             "prefill": {"conv_pe": 2, "conv_pe_res": 2,
+                         "flash_attention": 1}},
 }
+# kernels that launch on global attention layers only (local ring layers
+# keep a dense cache and a windowed attention)
+GLOBAL_ONLY = ("paged_gather", "flash_attention")
+# the gemma2 phase: the qwen2 cell's engine and trace on gemma2-2b.  Its
+# post-norms sit between the O / down GEMMs and the residual adds, so the
+# adds stay MISC ops (misc_add) and no GEMM takes a residual epilogue.
+GEMMA = dict(LM, arch="gemma2-2b", trials=3)
+GEMMA_PER_LAYER = {
+    "decode": {"conv_pe_w4": 4, "misc_add": 2, "paged_gather": 2},
+    "prefill": {"conv_pe_w4": 4, "misc_add": 2, "flash_attention": 1}}
+# the ring wrap: the reduced gemma2 (window 64); prompts + new tokens cross it
+RING = dict(batch=2, max_seq=128, prefill_len=48, burst=4, page=16,
+            requests=4, new_tokens=32, calib=(2, 48), prompt_lens=(40, 48))
+# the longer attention shape (B, Hq, Hkv, L = S, D, softcap)
+ATTN_LONG = (1, 8, 4, 2048, 256, 50.0)
+# the flash attention against its plain version: |err| <= ATTN_TOL x
+# max|plain| (f32 sums in another order; one softmax against chunks)
+ATTN_TOL = 1e-5
 # the SSM phase: falcon-mamba-7b on the eager path, w8a8, dense
 SSM = dict(arch="falcon-mamba-7b", batch=4, max_seq=128, prefill_len=64,
            burst=4, requests=8, new_tokens=32, prompt_lens=(16, 64),
@@ -232,6 +271,12 @@ def call_ops(name: str, args, kwargs, out):
         return (args[1] ** 2 + 1.0) * out.numel(), PEAK_F32   # adds, divide
     if name == "paged_gather":
         return 0.0, PEAK_INT8                  # a copy: bytes only
+    if name == "flash_attention":              # q.k and p.v multiply-adds
+        b, hq, l, d = args[0].shape            # of the visible (q, k) pairs
+        s = args[1].shape[2]
+        pairs = (l * (s - l + 1) + l * (l - 1) // 2
+                 if kwargs.get("causal", True) else l * s)
+        return 4.0 * b * hq * pairs * d, PEAK_F32
     a, w = args[0], args[1]
     if name == "dwc1d":                        # a multiply and an add a tap
         return 2.0 * w.shape[0] * out.numel(), PEAK_F32
@@ -276,6 +321,13 @@ def library_fn(torch, name: str, kern, args, kwargs):
     if name.startswith("conv_pe_w4"):
         return None       # no one PyTorch call unpacks int4 groups against
                           # int8 rows with this epilogue
+    if name == "flash_attention":
+        q, k, v = p["q"], p["k"], p["v"]
+        if p["softcap"] > 0 or (p["causal"] and q.shape[2] != k.shape[2]):
+            return None   # no one PyTorch call applies a logit softcap
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=p["causal"],
+            enable_gqa=q.shape[1] != k.shape[1])
     if name == "paged_gather":
         pool, tables = p["pool"], p["tables"]
         n, pg = pool.shape[0], pool.shape[1]
@@ -387,6 +439,8 @@ def _wrappers():
                            conv_pe.matmul_int4_fused_plain),
         "paged_gather": (flash_attn.paged_gather,
                          flash_attn.paged_gather_plain),
+        "flash_attention": (flash_attn.flash_attention,
+                            flash_attn.flash_attention_plain),
         "conv_pe": (conv_pe.matmul_int8_fused,
                     conv_pe.matmul_int8_fused_plain),
         "conv_pe_res": (conv_pe.matmul_int8_fused,
@@ -415,6 +469,7 @@ def capture_calls(torch, run):
     calls = {k: [] for k in KERNELS}
     patched = [(conv_pe, "matmul_int8_fused"), (conv_pe, "matmul_int8_pool"),
                (conv_pe, "matmul_int4_fused"), (flash_attn, "paged_gather"),
+               (flash_attn, "flash_attention"),
                (dwc_pe, "dwc2d"), (dwc_pe, "dwc1d_causal"),
                (low_channel, "low_channel_conv"),
                (misc_pe, "misc_add"), (misc_pe, "avgpool2d")]
@@ -434,8 +489,9 @@ def capture_calls(torch, run):
             return ("low_channel_max" if kwargs.get("pool", "none") == "max"
                     else "low_channel")
         return {"dwc2d": "dwc", "dwc1d_causal": "dwc1d",
-                "misc_add": "misc_add",
-                "avgpool2d": "avgpool2d", "paged_gather": "paged_gather"}[fn]
+                "misc_add": "misc_add", "avgpool2d": "avgpool2d",
+                "paged_gather": "paged_gather",
+                "flash_attention": "flash_attention"}[fn]
 
     def recorder(mod, fn):
         orig = saved[(mod, fn)]
@@ -457,15 +513,15 @@ def capture_calls(torch, run):
 
 
 def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
-                 plain_reps: int = REPS):
-    """Each recorded call: kernel vs its plain version (bitwise); when
-    `timed`, then the per-program-run times of the kernel, the plain
-    version and the library yardstick, and the bound from the calls' bytes
-    and operations."""
+                 plain_reps: int = REPS, tol=None):
+    """Each recorded call: kernel vs its plain version (bitwise, or with
+    `tol` within tol x max|plain|); when `timed`, then the per-program-run
+    times of the kernel, the plain version and the library yardstick, and
+    the bound from the calls' bytes and operations."""
     kern, plain = _wrappers()[name]
     if not calls:
         fail(f"{name}: the main path gave this kernel no call")
-    max_err, bytes_s, ops_s, bound = 0.0, 0.0, 0.0, 0.0
+    max_err, max_rel, bytes_s, ops_s, bound = 0.0, 0.0, 0.0, 0.0, 0.0
     for args, kwargs in calls:
         got = kern(*args, **kwargs)
         want = plain(*args, **kwargs)
@@ -476,7 +532,15 @@ def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
         err = float((got.to(torch.float64) - want.to(torch.float64)).abs()
                     .max())
         max_err = max(max_err, err)
-        if not torch.equal(got, want):
+        if tol is not None:
+            rel = err / float(want.abs().max())
+            max_rel = max(max_rel, rel)
+            if not rel <= tol:
+                fail(f"{name}: kernel differs from its plain version by "
+                     f"{err} = {rel} x max|plain| (tolerance {tol}) at "
+                     f"shapes "
+                     f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
+        elif not torch.equal(got, want):
             fail(f"{name}: kernel differs from its plain version "
                  f"(max abs err {err}) at shapes "
                  f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
@@ -487,7 +551,8 @@ def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
         bytes_s += t_bytes
         ops_s += t_ops
         bound += max(t_bytes, t_ops)
-    result = {"max_abs_err": max_err, "calls_per_run": len(calls)}
+    result = {"max_abs_err": max_err, "calls_per_run": len(calls),
+              "tol": tol, "max_rel_err": max_rel}
     if not timed:
         return result
 
@@ -509,8 +574,11 @@ def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
 def log_kernel(name, r, per="program run"):
     lib = ("null" if r["library_ms"] is None
            else f"{r['library_ms']:.4f}")
-    log(f"kernel {name}: {r['calls_per_run']} calls/run, bitwise equal "
-        f"to plain (max_abs_err {r['max_abs_err']}), per {per}: "
+    held = ("bitwise equal to plain" if r["tol"] is None else
+            f"within {r['tol']} x max|plain| of plain (max_rel_err "
+            f"{r['max_rel_err']:.3e})")
+    log(f"kernel {name}: {r['calls_per_run']} calls/run, {held} "
+        f"(max_abs_err {r['max_abs_err']}), per {per}: "
         f"kernel_ms {r['ms']:.4f} (device; {r['wall_ms']:.4f} wall) "
         f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
         f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
@@ -829,7 +897,7 @@ def lm_inputs(arch, cfg=LM):
     return calib, prompts
 
 
-def lm_engine(torch, arch, params, calib, quant, backend, layout):
+def lm_engine(torch, arch, params, calib, quant, backend, layout, cfg=LM):
     """A ServeEngine of the LM path, its programs compiled (calibration
     included) outside any clock."""
     from repro_torch.core.config import EngineConfig
@@ -837,25 +905,32 @@ def lm_engine(torch, arch, params, calib, quant, backend, layout):
     t0 = time.perf_counter()
     engine = ServeEngine(
         arch, params, EngineConfig(quant=quant, backend=backend),
-        batch_size=LM["batch"], max_seq=LM["max_seq"],
-        calib_batches=[calib], prefill_len=LM["prefill_len"],
-        decode_burst=LM["burst"], kv_layout=layout, page_size=LM["page"])
+        batch_size=cfg["batch"], max_seq=cfg["max_seq"],
+        calib_batches=[calib], prefill_len=cfg["prefill_len"],
+        decode_burst=cfg["burst"], kv_layout=layout, page_size=cfg["page"])
     t1 = time.perf_counter()
     engine.prefill_program()
     engine.decode_program()
     torch.cuda.synchronize()
-    log(f"lm engine {quant}/{backend}/{layout}: quantize + calibration "
+    log(f"lm engine {arch.name} {quant}/{backend}/{layout}: quantize + "
+        f"calibration "
         f"digest {t1 - t0:.2f} s (digest {engine.digest_s:.2f} s), "
         f"calibrate + compile {time.perf_counter() - t1:.2f} s")
     return engine
 
 
-def check_lm_counts(label, counts, per_layer, layers, prefills, steps):
-    """Each kernel launched its per-layer count for every prefill and
-    decode step of the run, and no other kernel launched."""
+def n_global(arch) -> int:
+    return sum(arch.layer_kind(i) == "global" for i in range(arch.n_layers))
+
+
+def check_lm_counts(label, counts, per_layer, arch, prefills, steps):
+    """Each kernel launched its per-layer count on every layer it serves
+    (GLOBAL_ONLY kernels: the global layers) for every prefill and decode
+    step of the run, and no other kernel launched."""
     want = {}
     for phase, runs in (("prefill", prefills), ("decode", steps)):
         for name, per in per_layer[phase].items():
+            layers = n_global(arch) if name in GLOBAL_ONLY else arch.n_layers
             want[name] = want.get(name, 0) + per * layers * runs
     for name, n in want.items():
         if n == 0 or counts.get(name, 0) != n:
@@ -894,8 +969,8 @@ def lm_serve(torch, engine, prompts, label, per_layer=None, cfg=LM):
         fail(f"{label}: ids of shape {ids.shape} in "
              f"[{ids.min()}, {ids.max()}]")
     if per_layer is not None:
-        check_lm_counts(label, counts, per_layer, engine.arch.n_layers,
-                        prefills, steps)
+        check_lm_counts(label, counts, per_layer, engine.arch, prefills,
+                        steps)
     elif counts:
         fail(f"{label}: the ref backend launched kernels: {counts}")
     tps = ids.size / wall
@@ -908,23 +983,35 @@ def lm_serve(torch, engine, prompts, label, per_layer=None, cfg=LM):
     return ids, counts, tps
 
 
-def lm_kernel_phases(torch, engine, prompts, names, results, label):
+def lm_kernel_phases(torch, engine, prompts, names, results, label,
+                     per_layer, cfg=LM, timed=True):
     """Every kernel call of one prefill and one decode step (one request
     per slot, one new token), each held bitwise against its plain version;
-    the decode step's calls timed (into `results` when given) and the
-    prefill's."""
+    when `timed`, the decode step's calls timed (into `results` when given)
+    and the prefill's.  Returns the recorded calls."""
     calls = capture_calls(torch, lambda: engine.generate(
-        prompts[:LM["batch"]], max_new_tokens=1))
-    layers = engine.arch.n_layers
+        prompts[:cfg["batch"]], max_new_tokens=1))
     for name in names:
-        is_dec = [name == "paged_gather" or a[0].shape[0] == LM["batch"]
+        layers = (n_global(engine.arch) if name in GLOBAL_ONLY
+                  else engine.arch.n_layers)
+        # a decode step's operands carry one row per slot
+        is_dec = [name == "paged_gather"
+                  or a[0].numel() // a[0].shape[-1] == cfg["batch"]
                   for a, _ in calls[name]]
         dec = [c for c, d in zip(calls[name], is_dec) if d]
         pre = [c for c, d in zip(calls[name], is_dec) if not d]
-        want_pre = 0 if name == "paged_gather" else 2 * layers
-        if len(dec) != 2 * layers or len(pre) != want_pre:
+        want_pre = per_layer["prefill"].get(name, 0) * layers
+        want_dec = per_layer["decode"].get(name, 0) * layers
+        if len(dec) != want_dec or len(pre) != want_pre:
             fail(f"{label} {name}: {len(pre)} prefill and {len(dec)} decode "
-                 f"calls, want {want_pre} and {2 * layers}")
+                 f"calls, want {want_pre} and {want_dec}")
+        if not timed:
+            with torch.inference_mode():
+                r = kernel_phase(torch, name, dec + pre, timed=False)
+            log(f"kernel {name} at {label} shapes: {len(dec)} decode-step "
+                f"and {len(pre)} prefill calls, bitwise equal to plain "
+                f"(max_abs_err {r['max_abs_err']})")
+            continue
         # the plain int4 GEMM runs its groups in sequence (thousands of
         # launches a step), so it is timed over fewer repeats
         with torch.inference_mode():
@@ -936,6 +1023,55 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label):
             with torch.inference_mode():
                 r = kernel_phase(torch, name, pre, reps=5, plain_reps=2)
             log_kernel(f"{name} ({label})", r, per="prefill")
+    return calls
+
+
+def attention_phase(torch, calls, label, want_calls):
+    """flash_attention's calls of one prefill: each held within ATTN_TOL of
+    max|plain| against its plain version, timed per prefill, and compared
+    bit for bit with the attention the ref backend's prefill runs instead
+    (models/layers.py::flash_attention on the same q / k / v)."""
+    from repro_torch.models import layers as L
+    if len(calls) != want_calls:
+        fail(f"flash_attention ({label}): {len(calls)} calls in one prefill, "
+             f"want {want_calls}")
+    with torch.inference_mode():
+        r = kernel_phase(torch, "flash_attention", calls, reps=5,
+                         plain_reps=5, tol=ATTN_TOL)
+        same = 0
+        for args, kwargs in calls:
+            q, k, v = args[:3]
+            b, hq, l, d = q.shape
+            hkv = k.shape[1]
+            got = _wrappers()["flash_attention"][0](*args, **kwargs)
+            blocked = L.flash_attention(
+                q.reshape(b, hkv, hq // hkv, l, d).permute(0, 3, 1, 2, 4),
+                k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=True,
+                logit_softcap=kwargs["softcap"])
+            same += bool(torch.equal(got, blocked.permute(0, 2, 3, 1, 4)
+                                     .reshape(b, hq, l, d)))
+    log_kernel(f"flash_attention ({label}, {tuple(calls[0][0][0].shape)} "
+               f"softcap {calls[0][1]['softcap']})", r, per="prefill")
+    log(f"flash_attention ({label}): {same} of {len(calls)} calls bitwise "
+        f"equal to the ref backend's prefill attention (models/layers.py)")
+    return r
+
+
+def attention_long(torch):
+    """The flash attention at one longer shape (ATTN_LONG, seeded inputs),
+    held and timed like a prefill's calls."""
+    b, hq, hkv, l, d, cap = ATTN_LONG
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda") * sc
+               for shape, sc in (((b, hq, l, d), 3.0), ((b, hkv, l, d), 3.0),
+                                 ((b, hkv, l, d), 1.0)))
+    with torch.inference_mode():
+        r = kernel_phase(torch, "flash_attention",
+                         [((q, k, v), dict(causal=True, softcap=cap))],
+                         reps=5, plain_reps=5, tol=ATTN_TOL)
+    log_kernel(f"flash_attention (B {b}, {hq}/{hkv} heads, L = S = {l}, D "
+               f"{d}, softcap {cap})", r, per="call")
+    return r
 
 
 def lm_profile(torch, engine, prompts, cfg=LM):
@@ -1042,9 +1178,12 @@ def lm_path(torch, results, add):
 
     # -- w4a8, CUDA, paged: the main path ------------------------------------
     engine = lm_engine(torch, arch, params, calib, "w4a8", "cuda", "paged")
-    lm_kernel_phases(torch, engine, prompts,
-                     ("conv_pe_w4", "conv_pe_w4_res", "paged_gather"),
-                     results, "w4a8")
+    calls = lm_kernel_phases(torch, engine, prompts,
+                             ("conv_pe_w4", "conv_pe_w4_res", "paged_gather"),
+                             results, "w4a8", LM_PER_LAYER["w4a8"])
+    attention_phase(torch, calls["flash_attention"], arch.name,
+                    n_global(arch))
+    del calls
     ids, counts, _ = lm_serve(torch, engine, prompts, "w4a8/cuda/paged",
                               LM_PER_LAYER["w4a8"])
     add(counts)
@@ -1073,7 +1212,7 @@ def lm_path(torch, results, add):
     # -- w8a8: the int8 Conv PE at the LM's shapes ---------------------------
     engine = lm_engine(torch, arch, params, calib, "w8a8", "cuda", "paged")
     lm_kernel_phases(torch, engine, prompts, ("conv_pe", "conv_pe_res"),
-                     None, "w8a8 LM")
+                     None, "w8a8 LM", LM_PER_LAYER["w8a8"])
     ids8, counts, _ = lm_serve(torch, engine, prompts, "w8a8/cuda/paged",
                                LM_PER_LAYER["w8a8"])
     add(counts)
@@ -1088,6 +1227,185 @@ def lm_path(torch, results, add):
         f"w4a8 and w8a8 agree on {int((ids8 == ids).sum())} of {ids.size}")
     del other
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The gemma2 path: local ring layers, softcaps, the flash attention
+# ---------------------------------------------------------------------------
+
+def attn_edge_codes(torch, engines, tokens):
+    """One prefill of `tokens` on each engine, recording every global
+    layer's attention output and quantizing it at its static scale as the
+    program does (the int8 edge into the O projection).  Returns the
+    number of codes that differ between the two engines, and the total."""
+    from repro_torch.compiler import executor as ex
+    from repro_torch.core.quant import quantize_static
+    codes = []
+    orig = ex._attn_dispatch
+    for engine in engines:
+        program = engine.prefill_program()
+        seen = {}
+
+        def spy(n, *args):
+            out = orig(n, *args)
+            if n.layer_kind == "global" and program.plan.emit_int8[n.id]:
+                seen[n.layer] = quantize_static(
+                    out, program.plan.out_scale[n.id])
+            return out
+        ex._attn_dispatch = spy
+        try:
+            with torch.inference_mode():
+                ex.execute(program, engine.params, tokens, engine.eng)
+        finally:
+            ex._attn_dispatch = orig
+        codes.append(seen)
+    if not codes[0] or sorted(codes[0]) != sorted(codes[1]):
+        fail("the attention-output edge was not recorded on both engines")
+    diff = sum(int((codes[0][i] != codes[1][i]).sum()) for i in codes[0])
+    return diff, sum(t.numel() for t in codes[0].values())
+
+
+def first_divergence(torch, np, ref_engine, prompts, ids, got):
+    """(request, step, top-2 margin of the ref engine's logits there) of
+    the first differing token: the request served alone again on the ref
+    engine (its ids depend only on its own padded row), the logits of its
+    prefill and decode steps recorded."""
+    r = int(np.nonzero((ids != got).any(axis=1))[0][0])
+    j = int(np.nonzero(ids[r] != got[r])[0][0])
+    seen = []
+    fill = "_prefill_paged" if ref_engine.paged else "_prefill_dense"
+    for attr in (fill, "_decode_step"):
+        orig = getattr(ref_engine, attr)
+
+        def rec(*args, _orig=orig):
+            logits, cache = _orig(*args)
+            seen.append(logits[0, -1].float())
+            return logits, cache
+        setattr(ref_engine, attr, rec)
+    try:
+        ref_engine.generate([prompts[r]], max_new_tokens=j + 1)
+    finally:
+        for attr in (fill, "_decode_step"):
+            delattr(ref_engine, attr)
+    top = torch.topk(seen[j], 2)
+    return r, j, float(top.values[0] - top.values[1])
+
+
+def gemma2_path(torch, results, add):
+    """gemma2-2b at full width on the compiled LM path (phase 9), then the
+    reduced model across a ring wrap."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    long_r = attention_long(torch)
+    t0 = time.perf_counter()
+    arch = configs.get_arch(GEMMA["arch"])
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaf_tensors(params))
+    log(f"lm {arch.name}: {arch.n_layers} layers ({n_global(arch)} global, "
+        f"local window {arch.local_window}), d {arch.d_model}, heads "
+        f"{arch.n_heads}/{arch.n_kv_heads} x {arch.head_dim}, d_ff "
+        f"{arch.d_ff} {arch.mlp_act}, vocab {arch.vocab_size}, softcaps "
+        f"{arch.attn_softcap}/{arch.final_softcap}: {n} float params in "
+        f"{time.perf_counter() - t0:.2f} s")
+    calib, prompts = lm_inputs(arch, GEMMA)
+    label = "gemma2 w4a8/cuda/paged"
+    engine = lm_engine(torch, arch, params, calib, "w4a8", "cuda", "paged",
+                       GEMMA)
+    calls = lm_kernel_phases(torch, engine, prompts,
+                             ("conv_pe_w4", "misc_add", "paged_gather"), None,
+                             arch.name, GEMMA_PER_LAYER, GEMMA, timed=False)
+    r = attention_phase(torch, calls["flash_attention"], arch.name,
+                        n_global(arch))
+    r["max_abs_err"] = max(r["max_abs_err"], long_r["max_abs_err"])
+    results["flash_attention"] = r
+    del calls
+    ids, counts, _ = lm_serve(torch, engine, prompts, label,
+                              GEMMA_PER_LAYER, GEMMA)
+    add(counts)
+    steady_lm(torch, engine, prompts, label, GEMMA["trials"], GEMMA)
+    log_profile("gemma2", lm_profile(torch, engine, prompts, GEMMA))
+
+    # -- the same trace on the ref backend and on the dense cache ------------
+    b, plen = GEMMA["batch"], GEMMA["prefill_len"]
+    toks = np.zeros((b, plen), np.int32)
+    for i, p in enumerate(prompts[:b]):
+        toks[i, plen - len(p):] = p
+    for backend, layout, what in (("ref", "paged", "backend='ref'"),
+                                  ("cuda", "dense", "the dense KV cache")):
+        other = lm_engine(torch, arch, params, calib, "w4a8", backend,
+                          layout, GEMMA)
+        got, _, _ = lm_serve(
+            torch, other, prompts, f"gemma2 w4a8/{backend}/{layout}",
+            None if backend == "ref" else
+            {"prefill": GEMMA_PER_LAYER["prefill"],
+             "decode": {"conv_pe_w4": 4, "misc_add": 2}}, GEMMA)
+        if backend == "ref":
+            diff, total = attn_edge_codes(
+                torch, (engine, other), torch.from_numpy(toks).cuda())
+            log(f"gemma2 attention-output edge, one prefill: {diff} of "
+                f"{total} int8 codes differ between backend='cuda' and "
+                f"backend='ref'")
+            del engine
+            torch.cuda.empty_cache()
+        if not np.array_equal(got, ids):
+            if backend == "ref":
+                r_, j, margin = first_divergence(torch, np, other, prompts,
+                                                 ids, got)
+                log(f"gemma2 ids: request {r_} first differs at step {j}; "
+                    f"the ref logits' top-2 margin there is {margin}")
+            fail(f"gemma2 w4a8 paged CUDA ids differ from {what}: "
+                 f"{int((got != ids).sum())} of {ids.size}")
+        log(f"ids gemma2 w4a8: paged CUDA equal to {what} ({ids.size} "
+            f"tokens)")
+        del other
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    ring_path(torch)
+
+
+def ring_path(torch):
+    """The reduced gemma2 (window 64, head_dim 32) served on the CUDA and
+    ref backends, paged and dense, with prompts + new tokens past the
+    window, so the local layers' ring caches wrap; ids equal."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    arch = configs.reduced(configs.get_arch(GEMMA["arch"]))
+    if RING["prefill_len"] + RING["new_tokens"] <= arch.local_window:
+        fail(f"the ring trace does not cross the {arch.local_window}-token "
+             "window")
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    calib, prompts = lm_inputs(arch, RING)
+    ids = None
+    for backend, layout in (("cuda", "paged"), ("ref", "paged"),
+                            ("cuda", "dense")):
+        engine = lm_engine(torch, arch, params, calib, "w4a8", backend,
+                           layout, RING)
+        per = None
+        if backend == "cuda":
+            per = {"prefill": GEMMA_PER_LAYER["prefill"],
+                   "decode": dict(GEMMA_PER_LAYER["decode"])}
+            if layout == "dense":
+                del per["decode"]["paged_gather"]
+        got, _, _ = lm_serve(torch, engine, prompts,
+                             f"gemma2 reduced w4a8/{backend}/{layout}", per,
+                             RING)
+        if ids is None:
+            ids = got
+        elif not np.array_equal(got, ids):
+            fail(f"gemma2 reduced ids across the ring wrap: {backend}/"
+                 f"{layout} differs from cuda/paged at "
+                 f"{int((got != ids).sum())} of {ids.size}")
+    log(f"ids gemma2 reduced (window {arch.local_window}, positions to "
+        f"{RING['prefill_len'] + RING['new_tokens']}): cuda paged equal to "
+        f"ref paged and cuda dense ({ids.size} tokens)")
 
 
 # ---------------------------------------------------------------------------
@@ -1155,11 +1473,13 @@ def ssm_kernel_phases(torch, engine, prompts, results):
 
 
 def ssm_path(torch, results, add):
-    """falcon-mamba-7b at full width on the eager SSM path (phase 9)."""
+    """falcon-mamba-7b at full width on the eager SSM path (phase 10)."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
+    log(f"ssm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device "
+        f"memory held by earlier phases")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     arch = configs.get_arch(SSM["arch"])
@@ -1308,14 +1628,26 @@ def main() -> int:
     zoo_sweep(torch, eng, ref_eng)
 
     # -- 8. qwen2-1.5b served ---------------------------------------------------
+    t0 = time.perf_counter()
     lm_path(torch, results, add)
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase qwen2-1.5b {time.perf_counter() - t0:.1f} s")
 
-    # -- 9. falcon-mamba-7b served on the eager SSM path -----------------------
+    # -- 9. gemma2-2b served, and the reduced model across a ring wrap --------
+    t0 = time.perf_counter()
+    gemma2_path(torch, results, add)
+    gc.collect()              # engines in reference cycles free their trees
+    torch.cuda.empty_cache()
+    log(f"phase gemma2-2b {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. falcon-mamba-7b served on the eager SSM path ----------------------
+    t0 = time.perf_counter()
     ssm_path(torch, results, add)
+    log(f"phase falcon-mamba-7b {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 10. the result lines --------------------------------------------------
+    # -- 11. the result lines --------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

@@ -299,18 +299,28 @@ def _split_heads(n: AttnOp, q, k, v):
             v.reshape(b, l, n.n_kv_heads, n.head_dim))
 
 
-def _attn_eval(n: AttnOp, q, k, v, collect: Optional[dict]) -> torch.Tensor:
+def _attn_eval(n: AttnOp, q, k, v, collect: Optional[dict],
+               eng: EngineConfig) -> torch.Tensor:
     """AttnOp in `full` mode: RoPE, causal attention; `collect` receives
-    the post-RoPE (k, v) of the layer."""
+    the post-RoPE (k, v) of the layer.  On the CUDA backend a global layer
+    (no window) runs the flash-attention kernel through ops.flash_mha;
+    local (windowed) layers, and every layer on the ref backend, run the
+    plain chunked attention of models/layers.py, as the reference does."""
     b, l = q.shape[0], q.shape[1]
     q, k, v = _split_heads(n, q, k, v)
     cos, sin = _rope_table(b, l, n.head_dim, n.rope_theta, q.device)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    out = L.flash_attention(q, k, v, causal=True, window=n.window,
-                            logit_softcap=n.softcap)
     if collect is not None:
         collect[n.layer] = (k, v)
+    if eng.backend == "cuda" and n.window == 0:
+        # [B, L, Hkv, G, D] -> [B, H, L, D] (head h = kv * G + g) and back
+        out = ops.flash_mha(q.permute(0, 2, 3, 1, 4).reshape(
+            b, n.n_heads, l, n.head_dim), k.permute(0, 2, 1, 3),
+            v.permute(0, 2, 1, 3), causal=True, softcap=n.softcap, cfg=eng)
+        return out.permute(0, 2, 1, 3).reshape(b, l, n.n_heads * n.head_dim)
+    out = L.flash_attention(q, k, v, causal=True, window=n.window,
+                            logit_softcap=n.softcap)
     return out.reshape(b, l, n.n_heads * n.head_dim)
 
 
@@ -365,7 +375,7 @@ def _attn_dispatch(n: AttnOp, q, k, v, collect, decode, rope_d, eng):
         if decode is None:
             raise ValueError("update-mode AttnOps run inside execute_decode")
         return _attn_update_eval(n, q, k, v, rope_d, decode, eng)
-    return _attn_eval(n, q, k, v, collect)
+    return _attn_eval(n, q, k, v, collect, eng)
 
 
 # ---------------------------------------------------------------------------

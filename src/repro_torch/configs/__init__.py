@@ -5,9 +5,9 @@ port serves, plus the reduced smoke variants its CPU tests run.
     reduced(get_arch("qwen2-1.5b"))   # 2 layers, d=128 (the tests' size)
 
 The CNN zoo lives in configs/cnn_zoo.py.  Archs join the registry with the
-slice that serves them: qwen2-1.5b on the compiled programs, falcon-mamba-7b
-on the eager SSM path (gemma2-2b needs local ring layers, softcaps and
-post-norms, which a later slice ports).
+slice that serves them: qwen2-1.5b and gemma2-2b (local ring layers,
+softcaps, post-norms, scaled embeddings) on the compiled programs,
+falcon-mamba-7b on the eager SSM path.
 """
 from __future__ import annotations
 
@@ -15,10 +15,11 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs.falcon_mamba_7b import ARCH as FALCON_MAMBA_7B
+from repro_torch.configs.gemma2_2b import ARCH as GEMMA2_2B
 from repro_torch.configs.qwen2_1_5b import ARCH as QWEN2_1_5B
 from repro_torch.core.config import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [QWEN2_1_5B,
+ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [QWEN2_1_5B, GEMMA2_2B,
                                                     FALCON_MAMBA_7B]}
 
 

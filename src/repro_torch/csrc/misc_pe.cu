@@ -28,10 +28,12 @@ __device__ __forceinline__ float load_f(const float* p, size_t i) {
   return p[i];
 }
 
-// out = act(a * sa + b * sb), requantized at os when out_int8.
-template <typename T>
+// out = act(a * sa + b * sb), requantized at os when out_int8.  Each
+// operand is int8 codes or f32 on its own, as the TPU kernel casts each:
+// an LM add of the f32 residual stream and an int8 edge mixes them.
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS)
-add_kernel(const T* __restrict__ a, const T* __restrict__ b,
+add_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
            void* __restrict__ out, size_t n, float sa, float sb, int act,
            int out_int8, float os) {
   const size_t stride = (size_t)gridDim.x * THREADS;
@@ -77,24 +79,38 @@ unsigned blocks_for(size_t n) {
 
 }  // namespace
 
+template <typename TA, typename TB>
+void launch_add(const void* a, const void* b, void* out, size_t n,
+                unsigned grid, cudaStream_t s, float sa, float sb, int act,
+                int out_int8, float os) {
+  add_kernel<TA, TB><<<grid, THREADS, 0, s>>>(
+      static_cast<const TA*>(a), static_cast<const TB*>(b), out, n, sa, sb,
+      act, out_int8, os);
+}
+
 // out[n] = act(a[n] * sa + b[n] * sb) (+ requant at os when out_int8); a
-// and b are both int8 (in_f32 = 0) or both f32.  Returns cudaGetLastError().
+// is int8 (a_f32 = 0) or f32, and so, on its own, is b.  Returns
+// cudaGetLastError().
 extern "C" int misc_add(const void* a, const void* b, void* out, long long n,
-                        int in_f32, float sa, float sb, int act,
+                        int a_f32, int b_f32, float sa, float sb, int act,
                         int out_int8, float os, void* stream) {
   if (n <= 0) return 0;
   // a grid-stride loop: enough blocks to fill the card, no more
   const unsigned grid = blocks_for(n) < 132u * 16u ? blocks_for(n)
                                                    : 132u * 16u;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (in_f32)
-    add_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), out,
-        (size_t)n, sa, sb, act, out_int8, os);
+  const size_t m = static_cast<size_t>(n);
+  if (a_f32 && b_f32)
+    launch_add<float, float>(a, b, out, m, grid, s, sa, sb, act, out_int8, os);
+  else if (a_f32)
+    launch_add<float, int8_t>(a, b, out, m, grid, s, sa, sb, act, out_int8,
+                              os);
+  else if (b_f32)
+    launch_add<int8_t, float>(a, b, out, m, grid, s, sa, sb, act, out_int8,
+                              os);
   else
-    add_kernel<int8_t><<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), out,
-        (size_t)n, sa, sb, act, out_int8, os);
+    launch_add<int8_t, int8_t>(a, b, out, m, grid, s, sa, sb, act, out_int8,
+                               os);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,7 @@
   dwc_pe.py       DWC PE depthwise conv                            [CUDA]
   low_channel.py  Low-Channel first-layer conv (+ max-pool tail)   [CUDA]
   misc_pe.py      MISC core residual add and average pool          [CUDA]
-  flash_attn.py   paged KV gather                                  [CUDA]
+  flash_attn.py   flash attention (prefill), paged KV gather       [CUDA]
   ops.py          public wrappers: backend dispatch, im2col, padding
   _build.py       nvcc build, ctypes binding, launch counts
 

@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("conv_pe", "conv_pe_w4", "dwc_pe", "low_channel", "misc_pe",
-           "paged_gather")
+SOURCES = ("conv_pe", "conv_pe_w4", "dwc_pe", "flash_attn", "low_channel",
+           "misc_pe", "paged_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

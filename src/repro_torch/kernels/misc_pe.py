@@ -31,8 +31,8 @@ _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.misc_add.argtypes = [_V, _V, _V, ctypes.c_longlong, _I, _F, _F, _I,
-                             _I, _F, _V]
+    lib.misc_add.argtypes = [_V, _V, _V, ctypes.c_longlong, _I, _I, _F, _F,
+                             _I, _I, _F, _V]
     lib.misc_add.restype = _I
     lib.misc_avgpool2d.argtypes = [_V, _V] + [_I] * 9 + [_V]
     lib.misc_avgpool2d.restype = _I
@@ -63,15 +63,17 @@ def misc_add(a: torch.Tensor, b: torch.Tensor, sa=1.0, sb=1.0,
              act: str = "none", out_scale: Optional[float] = None,
              out_dtype=torch.float32) -> torch.Tensor:
     """Fused scaled add: act(a * sa + b * sb), requantized to int8 at
-    out_scale when it is given, else f32.  a and b: the same shape and
-    dtype, int8 codes (a static program's edges, sa / sb their scales) or
-    f32 (a dynamic program)."""
+    out_scale when it is given, else f32.  a and b: the same shape, each
+    int8 codes (a static program's edge, its scale sa / sb) or f32 (a
+    dynamic program, or the f32 residual stream of a static LM program)."""
     if not a.is_cuda:
         return misc_add_plain(a, b, sa, sb, act, out_scale, out_dtype)
-    if a.dtype not in (torch.int8, torch.float32):
-        raise ValueError(f"a: expected int8 or float32, got {a.dtype}")
+    for t, name in ((a, "a"), (b, "b")):
+        if t.dtype not in (torch.int8, torch.float32):
+            raise ValueError(f"{name}: expected int8 or float32, got "
+                             f"{t.dtype}")
     require(a, "a", a.dtype)
-    require(b, "b", a.dtype, a.shape)
+    require(b, "b", b.dtype, a.shape)
     if out_scale is None and out_dtype != torch.float32:
         raise ValueError(f"misc_add kernel writes f32 or int8, "
                          f"not {out_dtype}")
@@ -80,7 +82,8 @@ def misc_add(a: torch.Tensor, b: torch.Tensor, sa=1.0, sb=1.0,
                       else torch.float32)
     err = _lib().misc_add(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-        int(a.dtype == torch.float32), _scalar(sa, "sa"), _scalar(sb, "sb"),
+        int(a.dtype == torch.float32), int(b.dtype == torch.float32),
+        _scalar(sa, "sa"), _scalar(sb, "sb"),
         _build.act_code(act), int(out_scale is not None),
         _scalar(out_scale, "out_scale") if out_scale is not None else 1.0,
         _build.stream_ptr(a))

@@ -4,9 +4,9 @@ Two backends (EngineConfig.backend):
   * "ref"  -- plain PyTorch (kernels/ref.py + the _epilogue chain): the
               calibration path and the bit-exact reference;
   * "cuda" -- the hand-written Hopper kernels (conv_pe, conv_pe_w4, dwc_pe
-              with its 1-D causal conv, low_channel, misc_pe,
-              paged_gather), whose wrappers launch on CUDA tensors and run
-              their plain versions on CPU tensors.
+              with its 1-D causal conv, low_channel, misc_pe, flash_attn's
+              attention and paged gather), whose wrappers launch on CUDA
+              tensors and run their plain versions on CPU tensors.
 
 The LM projections dispatch on the weight container: a QTensor runs the
 int8 Conv PE, a Q4Tensor (quant="w4a8") the int4 one.  `linear_group`
@@ -543,3 +543,24 @@ def paged_gather(pool: torch.Tensor, tables: torch.Tensor,
     if _kernels(cfg):
         return flash_attn.paged_gather(pool, tables.contiguous())
     return ref.paged_gather(pool, tables)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (the compiled prefill's global layers)
+# ---------------------------------------------------------------------------
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, softcap: float = 0.0,
+              cfg: Optional[EngineConfig] = None) -> torch.Tensor:
+    """q [B, H, L, D]; k, v [B, Hkv, S, D] with H a multiple of Hkv (GQA:
+    query head h reads KV head h // (H / Hkv)).  Causal masking is
+    end-aligned (query i at position i + S - L); keys past S are never
+    seen, so no padding is needed.  f32 out.  backend="cuda" launches the
+    flash-attention kernel (or raises on an operand it does not take);
+    backend="ref" runs its plain version."""
+    if cfg is not None and _kernels(cfg):
+        return flash_attn.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal=causal,
+                                          softcap=softcap)
+    return flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            softcap=softcap)

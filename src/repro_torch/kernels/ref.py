@@ -268,6 +268,45 @@ def global_avgpool(x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Attention oracle (the flash-attention kernel's plain version)
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              logit_softcap: float = 0.0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, Hq, Lq, D], k/v: [B, Hkv, Lk, D] (GQA by head repetition).
+    The causal mask is end-aligned (query i sits at position i + Lk - Lq);
+    masked logits are -1e30."""
+    b, hq, lq, d = q.shape
+    hkv = k.shape[1]
+    if hkv != hq:
+        rep = hq // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if logit_softcap > 0:
+        logits = softcap(logits, logit_softcap)
+    lk = k.shape[2]
+    dev = q.device
+    qpos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=dev)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
 # Paged KV cache gather (LM serving)
 # ---------------------------------------------------------------------------
 

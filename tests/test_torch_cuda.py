@@ -8,7 +8,8 @@ at import).  On the machine with the card:
 Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
 stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
 counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes);
-every output must equal the plain version bit for bit.
+every output must equal the plain version bit for bit, except the flash
+attention's, which agrees with its plain version to f32 rounding.
 """
 import numpy as np
 import pytest
@@ -137,13 +138,21 @@ def test_low_channel_max_tail(dev, hw, k, oc, pk, ps, mid):
 
 @pytest.mark.parametrize("shape", [(4, 7, 7, 2048), (3, 5, 7, 11), (1001,)])
 @pytest.mark.parametrize("dtype,out_scale", [(torch.int8, 0.0437),
-                                             (torch.float32, None)])
+                                             (torch.float32, None),
+                                             ("f32+int8", None),
+                                             ("int8+f32", 0.0437)])
 def test_misc_add(dev, shape, dtype, out_scale):
+    """Both operands int8 codes or f32, or one of each (an LM add of the
+    f32 residual stream and an int8 edge)."""
     rng = np.random.default_rng(len(shape) + int(out_scale is None))
     if dtype == torch.int8:
         a, b = _q(rng, shape, dev), _q(rng, shape, dev)
-    else:
+    elif dtype == torch.float32:
         a, b = _f(rng, shape, dev, -2.0, 2.0), _f(rng, shape, dev, -2.0, 2.0)
+    else:
+        a, b = _f(rng, shape, dev, -2.0, 2.0), _q(rng, shape, dev)
+        if dtype == "int8+f32":
+            a, b = b, a
     kw = dict(sa=0.0311, sb=0.0529, act="relu", out_scale=out_scale)
     before = _build.COUNTS.get("misc_add", 0)
     got = misc_pe.misc_add(a, b, **kw)
@@ -235,7 +244,7 @@ def test_wrapper_rejects_bad_operands(dev):
     # the new wrappers: wrong dtype, non-contiguous operand
     x = _q(rng, (2, 8, 8, 6), dev)
     with pytest.raises(ValueError):
-        misc_pe.misc_add(x, x.float(), 1.0, 1.0)
+        misc_pe.misc_add(x, x.to(torch.int16), 1.0, 1.0)
     with pytest.raises(ValueError):
         misc_pe.misc_add(x.to(torch.int32), x.to(torch.int32), 1.0, 1.0)
     with pytest.raises(ValueError):
@@ -313,3 +322,55 @@ def test_conv_pe_gemm_per_token_scale(dev, m, k, n):
     asc, wsc = _f(rng, (m, 1), dev), _f(rng, (1, n), dev)
     _check(conv_pe.matmul_int8_fused(a, b, asc, wsc),
            conv_pe.matmul_int8_fused_plain(a, b, asc, wsc))
+
+
+# (B, Hq, Hkv, L, S, D, softcap, causal, dtype): L and S off the 16-row and
+# 32-key tiles and the 128-key chunk, one chunk and several, GQA and not
+FLASH_SHAPES = [
+    (2, 4, 2, 37, 100, 32, 0.0, True, torch.float32),
+    (1, 8, 4, 130, 130, 256, 50.0, True, torch.float32),
+    (1, 6, 2, 17, 1500, 128, 20.0, False, torch.bfloat16),
+    (3, 2, 1, 1, 1, 64, 0.0, True, torch.float32),
+    (1, 2, 2, 1100, 1100, 128, 50.0, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,s,d,cap,causal,dtype", FLASH_SHAPES)
+def test_flash_attention(dev, b, hq, hkv, l, s, d, cap, causal, dtype):
+    """The kernel against its plain version (one softmax over all keys)
+    within 1e-5 of max|plain|: f32 sums in another order."""
+    g = torch.Generator(device=dev).manual_seed(l + s + d)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) * sc
+               for shape, sc in (((b, hq, l, d), 3.0), ((b, hkv, s, d), 3.0),
+                                 ((b, hkv, s, d), 1.0)))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = _build.COUNTS.get("flash_attention", 0)
+    got = flash_attn.flash_attention(q, k, v, causal=causal, softcap=cap)
+    assert _build.COUNTS["flash_attention"] == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_mha_rejects_unsupported(dev):
+    """ops.flash_mha on the CUDA backend launches the kernel or raises: no
+    fallback to the plain version for an operand the kernel does not
+    take."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.kernels import ops
+    eng = EngineConfig(quant="w4a8", backend="cuda")
+
+    def qkv(hq=4, hkv=2, l=8, s=8, d=32, dtype=torch.float32, kdtype=None):
+        return (torch.zeros(1, hq, l, d, dtype=dtype, device=dev),
+                torch.zeros(1, hkv, s, d, dtype=kdtype or dtype, device=dev),
+                torch.zeros(1, hkv, s, d, dtype=kdtype or dtype, device=dev))
+    before = dict(_build.COUNTS)
+    for kw in (dict(d=48), dict(dtype=torch.float16), dict(hq=3),
+               dict(l=9, s=8), dict(kdtype=torch.bfloat16)):
+        with pytest.raises(ValueError):
+            ops.flash_mha(*qkv(**kw), causal=True, cfg=eng)
+    assert _build.COUNTS == before
+    out = ops.flash_mha(*qkv(l=9, s=8), causal=False, cfg=eng)
+    assert out.shape == (1, 4, 9, 32) and bool(torch.isfinite(out).all())

@@ -1,7 +1,7 @@
 """The port's kernel modules against the JAX reference, on the CPU.
 
-For each of the four kernel modules (conv_pe, dwc_pe, low_channel and the
-pooled GEMM) the same seeded numpy inputs go through:
+For the Conv PE, DWC PE, Low-Channel and pooled-GEMM modules the same
+seeded numpy inputs go through:
 
   * the JAX `kernels/ref.py` oracle, and the port's plain version: int8
     outputs, int32 sums and f32 epilogues equal bit for bit;
@@ -12,6 +12,12 @@ pooled GEMM) the same seeded numpy inputs go through:
   * the port's `ops` with backend="cuda" on CPU tensors, where each kernel
     wrapper runs its plain version: this drives the CUDA backend's
     dispatch (im2col, reshapes, argument plumbing) without a card.
+
+Flash attention (`ops.flash_mha`, whose plain version is `ref.attention`)
+is held within 1e-5 of max|out| to the reference's Pallas kernel in
+interpret mode, its `ref.attention` and its `models/layers.flash_attention`
+(the compiled prefill's attention), and to the port's own
+`models/layers.flash_attention`: every path sums in f32, in another order.
 """
 import numpy as np
 import pytest
@@ -21,15 +27,21 @@ import torch
 from repro.compiler.graph import Epilogue as JEpilogue
 from repro.core.config import EngineConfig as JEng
 from repro.core.quant import QTensor as JQ
+import jax
+
 from repro.kernels import _epilogue as j_epi
+from repro.kernels import flash_attn as j_flash
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
+from repro.models import layers as JL
 
 from repro_torch.compiler.graph import Epilogue as TEpilogue
 from repro_torch.core.config import EngineConfig as TEng
 from repro_torch.core.quant import QTensor as TQ
-from repro_torch.kernels import _build, conv_pe, dwc_pe, low_channel
+from repro_torch.kernels import _build, conv_pe, dwc_pe, flash_attn
+from repro_torch.kernels import low_channel
 from repro_torch.kernels import ops as t_ops
+from repro_torch.models import layers as TL
 
 J_REF = JEng(quant="w8a8", backend="ref")
 J_PALLAS = JEng(quant="w8a8", backend="pallas", interpret=True)
@@ -371,3 +383,75 @@ def test_dynamic_quant_path_matches_ref(op):
     got = getattr(t_ops, op)(_t(x), TQ(_t(w), _t(wsc)), _t(bias), 2, "SAME",
                              "relu", T_REF)
     _assert_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: ops.flash_mha (plain version ref.attention)
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, L, S, causal, softcap, Pallas bq, bkv); D = 32 throughout
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, True, 0.0, 32, 32),      # GQA, L = S
+    (1, 4, 2, 40, 96, True, 50.0, 8, 32),      # GQA, L != S, softcap
+    (1, 2, 2, 24, 72, False, 50.0, 8, 24),     # non-causal, softcap
+    (2, 4, 1, 32, 48, False, 0.0, 16, 16),     # non-causal, one KV head
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,s,causal,cap,bq,bkv", FLASH_CASES)
+def test_flash_mha_matches_pallas_ref_and_layers(b, hq, hkv, l, s, causal,
+                                                 cap, bq, bkv):
+    """Seeded q / k / v scaled so that the logits reach the softcap; the
+    Pallas kernel gets the repeated KV heads and block sizes that divide L
+    and S (its wrapper would pad to 128, which moves the end-aligned causal
+    mask); layers.flash_attention gets q_offset = S - L.  Measured here:
+    at most 2.0e-6 of max|out|."""
+    d = 32
+    rng = np.random.default_rng(l * 7 + s)
+    q = (rng.normal(size=(b, hq, l, d)) * 3).astype(np.float32)
+    k = (rng.normal(size=(b, hkv, s, d)) * 3).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    got = _np(t_ops.flash_mha(_t(q), _t(k), _t(v), causal=causal,
+                              softcap=cap, cfg=T_REF))
+    assert got.shape == (b, hq, l, d) and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        _np(t_ops.flash_mha(_t(q), _t(k), _t(v), causal=causal, softcap=cap,
+                            cfg=T_CUDA)), got)       # CPU: the plain version
+    g = hq // hkv
+    rep = lambda a: jnp.asarray(np.repeat(a, g, 1).reshape(b * hq, s, d))
+    pallas = np.asarray(j_flash.flash_attention(
+        jnp.asarray(q.reshape(b * hq, l, d)), rep(k), rep(v), causal=causal,
+        softcap=cap, bq=bq, bkv=bkv, interpret=True)).reshape(b, hq, l, d)
+    oracle = np.asarray(jax.jit(
+        lambda *a: j_ref.attention(*a, causal=causal, logit_softcap=cap))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    # layers.flash_attention takes q [B, L, Hkv, G, D], k / v [B, S, Hkv, D]
+    qg = q.reshape(b, hkv, g, l, d).transpose(0, 3, 1, 2, 4)
+    kt, vt = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    off = s - l if causal else 0
+    blocked = np.asarray(jax.jit(lambda *a: JL.flash_attention(
+        *a, causal=causal, logit_softcap=cap, q_offset=off))(
+        jnp.asarray(qg), jnp.asarray(kt), jnp.asarray(vt)))
+    ours = _np(TL.flash_attention(_t(qg), _t(kt), _t(vt), causal=causal,
+                                  logit_softcap=cap, q_offset=off))
+    scale = np.abs(oracle).max()
+    for other in (pallas, oracle,
+                  *(x.transpose(0, 2, 3, 1, 4).reshape(b, hq, l, d)
+                    for x in (blocked, ours))):
+        assert np.abs(got - other).max() <= 1e-5 * scale
+
+
+def test_flash_mha_plain_widens_bf16():
+    """bf16 operands go through the plain version widened to f32 (the
+    kernel widens on load): the result is f32 and equals the f32 run."""
+    _build.reset_counts()
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               .to(torch.bfloat16) for sh in ((1, 2, 5, 32), (1, 1, 9, 32),
+                                              (1, 1, 9, 32)))
+    got = flash_attn.flash_attention(q, k, v, causal=True, softcap=50.0)
+    want = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal=True, softcap=50.0)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert _build.COUNTS == {}
