@@ -317,7 +317,7 @@ def _attn_eval(n: AttnOp, q, k, v, collect: Optional[dict],
         # [B, L, Hkv, G, D] -> [B, H, L, D] (head h = kv * G + g) and back
         out = ops.flash_mha(q.permute(0, 2, 3, 1, 4).reshape(
             b, n.n_heads, l, n.head_dim), k.permute(0, 2, 1, 3),
-            v.permute(0, 2, 1, 3), causal=True, softcap=n.softcap, cfg=eng)
+            v.permute(0, 2, 1, 3), eng, causal=True, softcap=n.softcap)
         return out.permute(0, 2, 1, 3).reshape(b, l, n.n_heads * n.head_dim)
     out = L.flash_attention(q, k, v, causal=True, window=n.window,
                             logit_softcap=n.softcap)

@@ -9,7 +9,7 @@
 // causal mask kpos <= qpos + (S - L) (and kpos < S), -1e30 in every masked
 // entry, the running max / sum / accumulator in f32 over KV chunks, and a
 // row whose sum is 0 divided by 1.  q, k, v are f32 or bf16 (widened to
-// f32 on load); the output is f32.  head_dim D is 32, 64, 128 or 256.
+// f32 on load); the output is f32.  head_dim D is 32, 128 or 256.
 //
 // Numerics.  The compiled prefill's ref backend runs the same attention
 // as plain torch (models/layers.py::flash_attention): one softmax per KV
@@ -237,8 +237,6 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* out,
              cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, out, B, Hq, Hkv, L, S, chunk,
-                                  scale, softcap, inv_softcap, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, Hq, Hkv, L, S, chunk,
                                   scale, softcap, inv_softcap, causal, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, Hq, Hkv, L, S, chunk,
                                     scale, softcap, inv_softcap, causal,

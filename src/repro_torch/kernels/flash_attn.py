@@ -35,14 +35,16 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._build import require
 
-HEAD_DIMS = (32, 64, 128, 256)
-# keys per softmax chunk of the plain prefill attention (its block_kv)
+HEAD_DIMS = (32, 128, 256)
+# most keys per softmax chunk, for this kernel and for the plain chunked
+# prefill attention (models/layers.py::flash_attention) alike
 KV_CHUNK = 1024
 
 
 def kv_chunk(s: int) -> int:
-    """Keys per softmax chunk at S keys: min(1024, S rounded up to 128),
-    the chunk the plain torch prefill attention takes."""
+    """Keys per softmax chunk at S keys: min(1024, S rounded up to 128).
+    The one rule for both backends' prefill attention, which keep one op
+    order on the same chunks."""
     return min(KV_CHUNK, -(-s // 128) * 128)
 
 

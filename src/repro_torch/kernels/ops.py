@@ -549,16 +549,16 @@ def paged_gather(pool: torch.Tensor, tables: torch.Tensor,
 # Flash attention (the compiled prefill's global layers)
 # ---------------------------------------------------------------------------
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, softcap: float = 0.0,
-              cfg: Optional[EngineConfig] = None) -> torch.Tensor:
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: EngineConfig, *, causal: bool = True,
+              softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, L, D]; k, v [B, Hkv, S, D] with H a multiple of Hkv (GQA:
     query head h reads KV head h // (H / Hkv)).  Causal masking is
     end-aligned (query i at position i + S - L); keys past S are never
     seen, so no padding is needed.  f32 out.  backend="cuda" launches the
     flash-attention kernel (or raises on an operand it does not take);
     backend="ref" runs its plain version."""
-    if cfg is not None and _kernels(cfg):
+    if _kernels(cfg):
         return flash_attn.flash_attention(q.contiguous(), k.contiguous(),
                                           v.contiguous(), causal=causal,
                                           softcap=softcap)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ArchConfig
+from repro_torch.kernels import flash_attn
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -66,16 +67,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0,
                     scale: Optional[float] = None, q_offset: int = 0,
-                    block_q: int = 512, block_kv: int = 1024
-                    ) -> torch.Tensor:
+                    block_q: int = 512) -> torch.Tensor:
     """Online-softmax attention over q [B, L, Hkv, G, D] and k, v
     [B, S, Hkv, D], block by block like the reference (queries in blocks
-    of `block_q`, keys in blocks of `block_kv`, padded keys masked)."""
+    of `block_q`, keys in chunks of `flash_attn.kv_chunk(S)`, padded keys
+    masked).  The CUDA flash-attention kernel takes the same key chunks,
+    so the two backends' prefill attention keeps one op order."""
     b, l, hkv, g, d = q.shape
     s = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
     bq = min(block_q, _round_up(l, 128))
-    bkv = min(block_kv, _round_up(s, 128))
+    bkv = flash_attn.kv_chunk(s)
     lp, sp = _round_up(l, bq), _round_up(s, bkv)
     qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, lp - l))
     kp = F.pad(k, (0, 0, 0, 0, 0, sp - s))

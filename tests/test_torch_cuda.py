@@ -330,7 +330,7 @@ FLASH_SHAPES = [
     (2, 4, 2, 37, 100, 32, 0.0, True, torch.float32),
     (1, 8, 4, 130, 130, 256, 50.0, True, torch.float32),
     (1, 6, 2, 17, 1500, 128, 20.0, False, torch.bfloat16),
-    (3, 2, 1, 1, 1, 64, 0.0, True, torch.float32),
+    (3, 2, 1, 1, 1, 128, 0.0, True, torch.float32),
     (1, 2, 2, 1100, 1100, 128, 50.0, True, torch.bfloat16),
 ]
 
@@ -367,7 +367,7 @@ def test_flash_mha_rejects_unsupported(dev):
                 torch.zeros(1, hkv, s, d, dtype=kdtype or dtype, device=dev),
                 torch.zeros(1, hkv, s, d, dtype=kdtype or dtype, device=dev))
     before = dict(_build.COUNTS)
-    for kw in (dict(d=48), dict(dtype=torch.float16), dict(hq=3),
+    for kw in (dict(d=48), dict(d=64), dict(dtype=torch.float16), dict(hq=3),
                dict(l=9, s=8), dict(kdtype=torch.bfloat16)):
         with pytest.raises(ValueError):
             ops.flash_mha(*qkv(**kw), causal=True, cfg=eng)
