@@ -80,7 +80,21 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      its ids equal to the backend="ref" engine's, the trace 3 times more
      for steady tokens/s and latency, and one profiled prefill and decode
      step;
- 11. one JSON line with every kernel's launches, error and times, then the
+ 11. qwen2-1.5b trained at full width on the float path (f32 params and
+     Adam moments, bf16 compute, TrainConfig(lr=3e-4, total_steps=8,
+     warmup_steps=1, remat="none"), SyntheticTokens at batch 8 x seq 128):
+     every float GEMM (conv_pe_f) product of one step -- 196 forward, 28
+     gate recomputes, 392 backward -- held against its plain version
+     within F_TOL x max|plain| (one bf16 ulp more at bf16 output) and timed
+     per shape with cuBLAS beside it; 8 steps through make_train_step
+     with the counters zeroed around them (616 conv_pe_f a step, nothing
+     else), finite losses, the last below the first; step ms, tokens/s,
+     mfu, clocked and profiled steps, peak memory; the ref backend's first
+     2 steps from the same (re-made) state, its step-1 loss and grad_norm
+     within TRAIN_LOSS_TOL / TRAIN_GNORM_TOL of the CUDA backend's; then
+     launch.train.main on the reduced model on the card with a checkpoint
+     and --resume;
+ 12. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -103,6 +117,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12     # float32 outside the tensor cores
+PEAK_BF16 = 989e12   # dense bf16 on the tensor cores
 REPS = 20
 TRIALS = 10          # repeats of the 8-request trace for steady numbers
 
@@ -136,6 +151,8 @@ KERNELS = {
               "src/repro/kernels/dwc_pe.py:157"),
     "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:29"),
+    "conv_pe_f": ("src/repro_torch/csrc/conv_pe_f.cu",
+                  "src/repro/kernels/conv_pe.py:429"),
 }
 # launches per program run of each path
 PER_RUN = {
@@ -187,6 +204,25 @@ SSM = dict(arch="falcon-mamba-7b", batch=4, max_seq=128, prefill_len=64,
            trials=3)
 SSM_PER_LAYER = {"decode": {"conv_pe": 4},
                  "prefill": {"conv_pe": 4, "dwc1d": 1}}
+# the training phase: full-width qwen2-1.5b, AdamW steps on the float path
+TRAIN = dict(arch="qwen2-1.5b", batch=8, seq=128, steps=8, ref_steps=2,
+             launcher_steps=4, launcher_ckpt_every=2)
+# conv_pe_f launches a step at remat "none": 7 projections x 28 layers
+# forward, 28 gate recomputes (the one activated projection), 2 products
+# x 196 backward
+TRAIN_PER_STEP = 7 * 28 + 28 + 2 * 7 * 28
+# the float GEMM against its plain version: |err| <= F_TOL x max|plain|
+# (f32 K-sums in another order), and at bf16 output one bf16 ulp more
+F_TOL = 1e-5
+# the ref backend's step-1 loss and grad_norm against the CUDA backend's:
+# the two round each projection at other points (ref: the bf16 product,
+# then bias and act in bf16; cuda: bias and act on the f32 sum, one
+# rounding), so bf16-sized differences compound over 28 layers and the
+# backward.  Measured on an H100 at full width: 5.6e-5 and 1.2e-4 (the
+# reduced model on the CPU: 2.4e-5 and 7e-4).  The bars sit about 10x
+# above those, tight enough that a fault in a part of the gradient (a
+# dropped dbias) does not pass.
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 5e-4, 2e-3
 # standalone avgpool2d shapes: (x shape, window, stride)
 AVGPOOL = (((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1))
 SWEEP_HW, SWEEP_BATCH = 64, 2
@@ -204,16 +240,20 @@ def fail(msg: str):
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
+def _self_us(e) -> float:
+    """A profiler event's own device time (us); 0 for host ops, since the
+    kernels they launch are counted themselves."""
+    if "CUDA" not in str(getattr(e, "device_type", "")):
+        return 0.0
+    us = getattr(e, "self_device_time_total", None)
+    return getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+
+
 def device_us(prof) -> dict:
-    """Device time (us) per kernel name in a torch.profiler trace; host ops
-    are skipped, since the kernels they launch are counted themselves."""
+    """Device time (us) per kernel name in a torch.profiler trace."""
     per = {}
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = _self_us(e)
         if us > 0:
             per[e.key] = per.get(e.key, 0.0) + us
     return per
@@ -224,7 +264,16 @@ def cuda_ms(torch, fn, reps: int = REPS):
     Device ms is the summed duration of the kernels `fn` launches, from
     torch.profiler over `reps` calls; wall ms is CUDA events around `reps`
     back-to-back calls, which also counts the gaps where the device waits
-    for the host to launch the next kernel."""
+    for the host to launch the next kernel.  torch.profiler loses device
+    events: now and then all of a trace, at times a third, and in some
+    phases two events of every trace; a sum over such a trace reads
+    short.  Each call launches the same kernels, so a trace is whole when
+    every kernel name's event count is a multiple of `reps`; a second
+    trace is taken if the first is not.  If neither is whole, each kernel
+    name's time a call is its mean event time in the trace that holds
+    most of its events, times its launches a call: that count over
+    `reps`, rounded up (events are lost, never added)."""
+    import math
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
@@ -237,18 +286,26 @@ def cuda_ms(torch, fn, reps: int = REPS):
     end.record()
     end.synchronize()
     wall = start.elapsed_time(end) / reps
-    # torch.profiler now and then hands back a trace without the device
-    # events of a short window; such a trace is taken again, not used
-    for _ in range(3):
+    fullest = {}                # kernel name -> (us, count), most events
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = sum(device_us(prof).values()) / 1e3 / reps
-        if dev > 0:
-            return dev, wall
-        log("torch.profiler reported no device time; profiling again")
-    fail("torch.profiler reported no device time in three traces")
+        trace = {e.key: (us, e.count) for e in prof.key_averages()
+                 if (us := _self_us(e)) > 0}
+        if trace and all(c % reps == 0 for _, c in trace.values()):
+            return sum(us for us, _ in trace.values()) / 1e3 / reps, wall
+        for name, (us, c) in trace.items():
+            if c > fullest.get(name, (0.0, 0))[1]:
+                fullest[name] = (us, c)
+        log(f"torch.profiler trace lost events (event counts "
+            f"{[c for _, c in trace.values()]} for {reps} calls)")
+    if not fullest:
+        fail("torch.profiler reported no device time in two traces")
+    log("no whole trace in two: mean event times of the fullest traces")
+    return sum(us / c * math.ceil(c / reps)
+               for us, c in fullest.values()) / 1e3, wall
 
 
 def _tensors(args, kwargs):
@@ -1074,6 +1131,39 @@ def attention_long(torch):
     return r
 
 
+def traced(torch, fn):
+    """Device time (us) per kernel name over one call of `fn`
+    (torch.profiler); an empty trace is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = device_us(prof)
+        if sum(per.values()) > 0:
+            return per
+        log("torch.profiler reported no device time; profiling again")
+    fail("torch.profiler reported no device time in three traces")
+
+
+def clocked(torch, fn, n):
+    """(the last result, median wall us, median host enqueue us) over n
+    calls of `fn`: host clock from the call to its return (the enqueue),
+    and on to a synchronize (the wall)."""
+    import numpy as np
+    walls, enqueue = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        enqueue.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    return out, float(np.median(walls)), float(np.median(enqueue))
+
+
 def lm_profile(torch, engine, prompts, cfg=LM):
     """Where a decode step's and a prefill's time goes: each one's wall
     time (median of 5 decode steps, of 3 prefills; host clock around a
@@ -1082,7 +1172,6 @@ def lm_profile(torch, engine, prompts, cfg=LM):
     cache whose table holds every block; the eager path on a fresh dense
     cache, merged as the engine does."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     b, plen, dev = engine.batch, cfg["prefill_len"], engine.device
     toks = np.zeros((b, plen), np.int32)
     for i, p in enumerate(prompts[:b]):
@@ -1105,30 +1194,6 @@ def lm_profile(torch, engine, prompts, cfg=LM):
         return cache, torch.argmax(logits[:, -1], -1)[:, None].to(
             torch.int32)
 
-    def traced(fn):
-        for _ in range(3):       # an empty trace is taken again
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            per = device_us(prof)
-            if sum(per.values()) > 0:
-                return per
-            log("torch.profiler reported no device time; profiling again")
-        fail("torch.profiler reported no device time in three traces")
-
-    def clocked(fn, n):
-        walls, enqueue = [], []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            enqueue.append((time.perf_counter() - t0) * 1e6)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e6)
-        return out, float(np.median(walls)), float(np.median(enqueue))
-
     with torch.inference_mode():
         cache, cur = fresh()
         state = {"cache": cache}
@@ -1136,14 +1201,14 @@ def lm_profile(torch, engine, prompts, cfg=LM):
         def step():
             logits, state["cache"] = engine._decode_step(state["cache"], cur)
             return logits
-        logits, dwall, denq = clocked(step, 5)
+        logits, dwall, denq = clocked(torch, step, 5)
         if not torch.isfinite(logits).all():
             fail("non-finite decode logits")
-        dec = traced(step)
-        (logits, _), pwall, penq = clocked(prefill, 3)
+        dec = traced(torch, step)
+        (logits, _), pwall, penq = clocked(torch, prefill, 3)
         if not torch.isfinite(logits).all():
             fail("non-finite prefill logits")
-        pre = traced(fresh)
+        pre = traced(torch, fresh)
     return {"decode step": (dwall, denq, dec), "prefill": (pwall, penq, pre)}
 
 
@@ -1516,6 +1581,295 @@ def ssm_path(torch, results, add):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The training path: full-width qwen2-1.5b on the float GEMM kernel
+# ---------------------------------------------------------------------------
+
+def f_check(torch, got, want):
+    """(max abs err, elements apart) of a conv_pe_f call against its plain
+    version; fails past F_TOL x max|plain| (plus one bf16 ulp of each
+    element at bf16 output)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"conv_pe_f: kernel {got.dtype}{tuple(got.shape)} vs plain "
+             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    err = (g - w).abs()
+    tol = F_TOL * float(w.abs().max())
+    lim = torch.full_like(w, tol)
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(w.abs())
+        lim = lim + torch.ldexp(torch.ones_like(w), e - 8)
+    if not bool((err <= lim).all()) or not bool(torch.isfinite(g).all()):
+        fail(f"conv_pe_f: kernel differs from its plain version by "
+             f"{float(err.max())} (tolerance {tol} + one bf16 ulp at bf16 "
+             f"output) at {tuple(got.shape)}")
+    return float(err.max()), int((g != w).sum())
+
+
+def capture_gemm_f(torch, run):
+    """Call `run()` with every conv_pe_f product (forward, recompute and
+    backward, all through conv_pe._gemm_f) recording its arguments."""
+    from repro_torch.kernels import conv_pe
+    calls, orig = [], conv_pe._gemm_f
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+    conv_pe._gemm_f = rec
+    try:
+        run()
+    finally:
+        conv_pe._gemm_f = orig
+    torch.cuda.synchronize()
+    return calls
+
+
+def gemm_f_phase(torch, calls, n_forward):
+    """Every recorded call held against its plain version; then per shape
+    group (forward or backward, a, b, bias, act, types) one call timed:
+    the kernel, the plain version and cuBLAS (torch.matmul on the same
+    types, the bias and act in torch ops), times the group's calls a step,
+    against the bound (the larger of compulsory bytes at PEAK_BYTES and
+    2 M N K at PEAK_BF16).  The first `n_forward` calls are the forward's
+    (autograd runs the whole forward before the backward); the rest, the
+    gate recomputes and the backward products, are summed apart."""
+    from repro_torch.kernels import conv_pe
+    from repro_torch.kernels.ref import act_fn
+    max_err, apart, total = 0.0, 0, 0
+    groups = {}
+    with torch.no_grad():
+        for i, (a, b, bias, act, out_dtype) in enumerate(calls):
+            got = conv_pe._gemm_f(a, b, bias, act, out_dtype)
+            want = conv_pe.matmul_f_fused_plain(a, b, bias, act, out_dtype)
+            err, n = f_check(torch, got, want)
+            max_err = max(max_err, err)
+            if out_dtype == torch.bfloat16:
+                apart += n
+                total += got.numel()
+            key = ("forward" if i < n_forward else "backward",
+                   tuple(a.shape), tuple(b.shape), bias is not None, act,
+                   str(a.dtype), str(out_dtype))
+            groups.setdefault(key, []).append((a, b, bias, act, out_dtype))
+    log(f"kernel conv_pe_f: {len(calls)} calls of one step within {F_TOL} x "
+        f"max|plain| (max_abs_err {max_err}); at bf16 output {apart} of "
+        f"{total} elements one bf16 ulp apart, the rest equal")
+    names = ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")
+    tot = {"forward": dict.fromkeys(names, 0.0),
+           "backward": dict.fromkeys(names, 0.0)}
+    bytes_s = ops_s = 0.0
+    with torch.no_grad():
+        for key, grp in sorted(groups.items()):
+            a, b, bias, act, out_dtype = grp[0]
+            m, k = a.shape
+            n = b.shape[1]
+            nbytes = (sum(_nbytes(t) for t in (a, b, bias) if t is not None)
+                      + m * n * (2 if out_dtype == torch.bfloat16 else 4))
+            t_bytes, t_ops = nbytes / PEAK_BYTES, 2.0 * m * n * k / PEAK_BF16
+            f = act_fn(act)
+
+            def library():
+                y = torch.matmul(a, b)
+                if bias is not None:
+                    y = y.to(torch.float32) + bias
+                return f(y).to(out_dtype)
+            ms, wall = cuda_ms(torch, lambda: conv_pe._gemm_f(*grp[0]))
+            plain, _ = cuda_ms(
+                torch, lambda: conv_pe.matmul_f_fused_plain(*grp[0]))
+            lib, _ = cuda_ms(torch, library)
+            c = len(grp)
+            for name, v in zip(names, (ms, wall, plain, lib,
+                                       max(t_bytes, t_ops) * 1e3)):
+                tot[key[0]][name] += c * v
+            bytes_s += c * t_bytes
+            ops_s += c * t_ops
+            log(f"kernel conv_pe_f {key[0]} [{m}, {k}] x [{k}, {n}] bias "
+                f"{key[3]} act {act} {key[5]} -> {key[6]}: {c} calls/step, "
+                f"per call kernel_ms {ms:.4f} (device; {wall:.4f} wall) "
+                f"plain_ms {plain:.4f} library_ms {lib:.4f} (cuBLAS) "
+                f"bound_ms {max(t_bytes, t_ops) * 1e3:.4f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+                f"{2.0 * m * n * k / ms / 1e9:.2f} TFLOP/s")
+    r = {"max_abs_err": max_err, "calls_per_run": len(calls), "tol": F_TOL,
+         "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+    for name in names:
+        r[name] = tot["forward"][name] + tot["backward"][name]
+    for what, t in (("forward", tot["forward"]),
+                    ("recompute + backward", tot["backward"]),
+                    ("step", r)):
+        log(f"kernel conv_pe_f per step, {what}: kernel_ms {t['ms']:.4f} "
+            f"(device; {t['wall_ms']:.4f} wall) plain_ms "
+            f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} "
+            f"bound_ms {t['bound_ms']:.4f}")
+    return r
+
+
+def matmul_params(arch) -> int:
+    """Parameters that enter matrix products (every projection, and the
+    tied head)."""
+    d, hd = arch.d_model, arch.head_dim
+    attn = d * hd * (2 * arch.n_heads + 2 * arch.n_kv_heads)
+    mlp = (3 if arch.mlp_gated else 2) * d * arch.d_ff
+    return arch.n_layers * (attn + mlp) + arch.vocab_size * d
+
+
+def train_launcher(torch):
+    """launch.train.main on the reduced qwen2 on the card: 4 steps with a
+    checkpoint every 2, then --resume to 6 steps, which must continue from
+    the saved step 4 (in a temporary directory)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    n, every = TRAIN["launcher_steps"], TRAIN["launcher_ckpt_every"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", TRAIN["arch"], "--smoke", "--device", "cuda",
+                "--ckpt-every", str(every), "--ckpt-dir", tmp]
+        outs = []
+        for extra in (["--steps", str(n)],
+                      ["--steps", str(n + every), "--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = launch_train.main(args + extra)
+            outs.append(buf.getvalue())
+            if rc != 0:
+                fail(f"launch.train.main {extra} returned {rc}:\n{outs[-1]}")
+        steps = [[int(line.split()[1]) for line in o.splitlines()
+                  if line.startswith("step ")] for o in outs]
+        if steps[0] != list(range(n)) or \
+                f"resumed from step {n}" not in outs[1] or \
+                steps[1] != list(range(n, n + every)):
+            fail(f"launcher resume: steps {steps}, output:\n{outs[1]}")
+        saved = sorted(os.listdir(tmp))
+    log(f"train launcher ({TRAIN['arch']} reduced, cuda): steps "
+        f"{steps[0]}, checkpoints {saved}; --resume continued at step {n}: "
+        f"steps {steps[1]}")
+
+
+def train_path(torch, results, add):
+    """qwen2-1.5b at full width on the training path (phase 11)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import engine as eng_lib
+    from repro_torch.core.config import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    log(f"train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of device "
+        f"memory held by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    arch = configs.get_arch(TRAIN["arch"])
+    b, l, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+
+    def fresh_state():
+        """The seeded starting state (host init, the same every time)."""
+        t0 = time.perf_counter()
+        params = init_params(T.lm_schema(arch),
+                             torch.Generator().manual_seed(0), device="cuda")
+        state = init_train_state(params)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaf_tensors(params))
+        log(f"train {arch.name}: {n} f32 params (+ f32 Adam moments) in "
+            f"{time.perf_counter() - t0:.2f} s; batch {b} x seq {l}")
+        return state
+
+    tcfg = TrainConfig(lr=3e-4, total_steps=steps, warmup_steps=1,
+                       remat="none")
+    pipe = SyntheticTokens(arch, ShapeConfig("train", l, b, "train"))
+    cuda_step = make_train_step(arch, eng_lib.train_engine(), tcfg)
+    ref_step = make_train_step(arch, eng_lib.train_engine("ref"), tcfg)
+    state = fresh_state()
+
+    # -- the kernel at every product of one step -----------------------------
+    calls = capture_gemm_f(torch, lambda: cuda_step(state, pipe.batch_at(0)))
+    if len(calls) != TRAIN_PER_STEP:
+        fail(f"conv_pe_f: {len(calls)} products in one step, want "
+             f"{TRAIN_PER_STEP}")
+    results["conv_pe_f"] = gemm_f_phase(torch, calls, 7 * arch.n_layers)
+    log(f"train: peak device memory over the captured step and the kernel "
+        f"checks {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del calls, state       # the captured step updated the state in place
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh_state()
+
+    # -- the main path: `steps` steps on the CUDA backend, counted ------------
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        state, m = cuda_step(state, pipe.batch_at(i))
+        met = {k: float(v) for k, v in m.items()}   # synchronizes
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(met["loss"])
+        if i == 0:
+            first = met
+        log(f"train step {i}: loss {met['loss']:.6f} nll {met['nll']:.6f} "
+            f"grad_norm {met['grad_norm']:.6f} lr {met['lr']:.6g} accuracy "
+            f"{met['accuracy']:.6f}, {walls[-1]:.1f} ms")
+    torch.cuda.synchronize()
+    counts = dict(_build.COUNTS)
+    if counts != {"conv_pe_f": TRAIN_PER_STEP * steps}:
+        fail(f"train: launches {counts}, want conv_pe_f "
+             f"{TRAIN_PER_STEP} x {steps} steps and nothing else")
+    add(counts)
+    if not all(np.isfinite(losses)):
+        fail(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {steps} steps: {losses}")
+    med = float(np.median(walls[1:]))
+    tokens = b * l
+    mfu = 6.0 * matmul_params(arch) * tokens / (med / 1e3) / PEAK_BF16
+    log(f"train {arch.name} cuda: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+        f"over {steps} steps; median step {med:.1f} ms over steps 2-{steps} "
+        f"= {tokens / med * 1e3:.1f} tokens/s, mfu {100 * mfu:.3f}% "
+        f"({matmul_params(arch)} matrix params, peak {PEAK_BF16:.3g}); "
+        f"launches {json.dumps(counts)}")
+
+    # -- more steps, clocked and profiled (not counted) -----------------------
+    holder = {"state": state}
+    del state
+
+    def one_step():
+        holder["state"], m = cuda_step(holder["state"], pipe.batch_at(steps))
+        return m
+    _, wall, enq = clocked(torch, one_step, 3)
+    per = traced(torch, one_step)
+    log_profile("train", {"step": (wall, enq, per)})
+    log(f"train peak device memory over the steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the state "
+        f"updated in place)")
+    del holder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the ref backend's first steps from the same (re-made) state ----------
+    ref_m, ref_ms, state = [], [], fresh_state()
+    for i in range(TRAIN["ref_steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = ref_step(state, pipe.batch_at(i))
+        ref_m.append({k: float(v) for k, v in m.items()})
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, tol in (("loss", TRAIN_LOSS_TOL), ("grad_norm", TRAIN_GNORM_TOL)):
+        rel = abs(first[k] - ref_m[0][k]) / abs(ref_m[0][k])
+        log(f"train step 0 {k}: cuda {first[k]:.6f}, ref {ref_m[0][k]:.6f} "
+            f"(relative gap {rel:.3e}, tolerance {tol})")
+        if not rel <= tol:
+            fail(f"train: step-1 {k} of the CUDA backend {first[k]} vs the "
+                 f"ref backend's {ref_m[0][k]}: {rel} relative > {tol}")
+    log(f"train ref backend (cuBLAS bf16) steps: "
+        f"{', '.join(f'{x:.1f}' for x in ref_ms)} ms; losses "
+        f"{', '.join(str(m['loss']) for m in ref_m)}")
+    train_launcher(torch)
+
+
 def _steady_once(torch, engine, prompts, cfg=LM):
     """One more pass of the trace, not counted: tokens/s."""
     torch.cuda.synchronize()
@@ -1563,6 +1917,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs.cnn_zoo import CNN_ZOO
@@ -1644,10 +1999,17 @@ def main() -> int:
     # -- 10. falcon-mamba-7b served on the eager SSM path ----------------------
     t0 = time.perf_counter()
     ssm_path(torch, results, add)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase falcon-mamba-7b {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. qwen2-1.5b trained on the float GEMM kernel -----------------------
+    t0 = time.perf_counter()
+    train_path(torch, results, add)
+    log(f"phase train qwen2-1.5b {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 11. the result lines --------------------------------------------------
+    # -- 12. the result lines --------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX reference.
+"""Weights and train states carried across from the JAX reference.
 
 torch cannot reproduce JAX's PRNG init, so tests that hold the port against
 the reference build the reference's parameter tree, convert its leaves with
@@ -42,3 +42,16 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(tree.copy()).to(device)   # C order, 0-d ok
     return tree
+
+
+def train_state_from_numpy(state, device="cuda") -> dict:
+    """The reference's train state {"params", "opt": {"m", "v", "step"}}
+    with numpy leaves -> the port's, on `device`: the same tree of tensors,
+    the step a 0-d int32 tensor.  Both trainers then start from one
+    state (the port's init_params cannot reproduce JAX's PRNG)."""
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": {"m": params_from_numpy(opt["m"], device),
+                    "v": params_from_numpy(opt["v"], device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}

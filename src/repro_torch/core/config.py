@@ -5,9 +5,17 @@
                             archs served on the eager path).
   * CNNConfig / ConvSpec -- a CNN from the paper's own evaluation zoo.
   * EngineConfig         -- the DPUV4E engine feature set.
+  * ShapeConfig          -- a (seq_len, global_batch, kind) input shape.
+  * TrainConfig          -- optimizer / schedule / fault-tolerance knobs
+                            (the reference's, less the fields of paths
+                            not ported yet: the mesh fields zero1 and
+                            seq_shard_activations, loss_chunk_vocab,
+                            scan_layers, triangle_skip and param_dtype
+                            join with their slices).
 
-EngineConfig keeps the knobs the served paths read: the quant mode (with
-the int4 group size of w4a8), the kernel backend and the KV-cache dtype.
+EngineConfig keeps the knobs the served and trained paths read: the quant
+mode (with the int4 group size of w4a8), the kernel backend and the
+KV-cache dtype.
 The reference's other fields (XVDPU baseline, MoE dispatch, Pallas
 interpret mode) join with the slices that run them; ArchConfig keeps the
 fields the transformer lowering and the mamba mixer read, and the MoE /
@@ -16,6 +24,8 @@ arch.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -112,16 +122,18 @@ class CNNConfig:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    # none -> f32 math (the calibration path); w8a8 -> int8 x int8 -> int32
-    # (the paper's mode); w4a8 -> w8a8 everywhere, except that the LM
-    # projection weights pack to per-group int4 (Q4Tensor), unpacked in
-    # registers by the int4 Conv PE kernel.
+    # none -> float math (training, and calibration on backend="ref");
+    # w8a8 -> int8 x int8 -> int32 (the paper's mode); w4a8 -> w8a8
+    # everywhere, except that the LM projection weights pack to per-group
+    # int4 (Q4Tensor), unpacked in registers by the int4 Conv PE kernel.
     quant: str = "none"
     # K rows per (scale, zero) group of the w4a8 packing; part of the
     # ProgramCache key through EngineConfig, so group sizes never collide.
     w4_group_size: int = 64
     # "ref" = plain PyTorch (kernels/ref.py), "cuda" = the hand-written
-    # Hopper kernels (the reference's "pallas" slot).
+    # Hopper kernels (the reference's "pallas" slot): the int8 / int4
+    # engines under w8a8 / w4a8, and under quant="none" the float GEMM
+    # (conv_pe.matmul_f_fused) on every float projection.
     backend: str = "ref"
     # serving KV-cache element type
     kv_cache_dtype: str = "bf16"
@@ -138,7 +150,34 @@ class EngineConfig:
         if self.kv_cache_dtype not in KV_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not "
                              f"in {KV_DTYPES}")
-        if self.backend == "cuda" and self.quant == "none":
-            raise ValueError("the CUDA kernels run the int8 engines "
-                             "(quant='w8a8' / 'w4a8'); the float path is "
-                             "backend='ref'")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    # Memory / schedule
+    remat: str = "block"             # none | block | full
+    microbatches: int = 1            # gradient accumulation
+    # Fault tolerance
+    ckpt_every: int = 100
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    async_ckpt: bool = True
+    keep_ckpts: int = 3
+    step_timeout_s: float = 0.0      # straggler watchdog (0 = off)
+    seed: int = 0

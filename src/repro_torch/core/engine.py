@@ -1,8 +1,9 @@
 """DPUV4E engine facade: the presets + param-tree quantization.
 
 The paper's deployment flow is: train/convert -> Vitis-AI INT8 quantize ->
-run on the DPU engines.  Here: float params -> quantize_params() -> serve
-through the Conv PE / DWC PE / Low-Channel kernels (kernels/ops.py).
+run on the DPU engines.  Here: train in bf16 / f32 (train_engine) -> float
+params -> quantize_params() -> serve through the Conv PE / DWC PE /
+Low-Channel kernels (kernels/ops.py).
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ def weight_mode(eng: EngineConfig) -> str:
     if eng.quant == "w4a8":
         return f"w4g{eng.w4_group_size}"
     return ""
+
+
+def train_engine(backend: str = "cuda") -> EngineConfig:
+    """The float training path: every projection on the float GEMM kernel
+    (conv_pe.matmul_f_fused) on the card, or plain torch on "ref"."""
+    return EngineConfig(quant="none", backend=backend)
 
 
 def paper_engine(backend: str = "cuda", **kw) -> EngineConfig:

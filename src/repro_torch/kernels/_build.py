@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("conv_pe", "conv_pe_w4", "dwc_pe", "flash_attn", "low_channel",
-           "misc_pe", "paged_gather")
+SOURCES = ("conv_pe", "conv_pe_f", "conv_pe_w4", "dwc_pe", "flash_attn",
+           "low_channel", "misc_pe", "paged_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -151,3 +151,16 @@ def act_code(act: str) -> int:
         raise ValueError(f"activation {act!r} has no CUDA epilogue "
                          f"(have {sorted(ACT_CODES)})")
     return ACT_CODES[act]
+
+
+# the float GEMM's epilogue (csrc/conv_pe_f.cu) applies every act of
+# ref.act_fn, in f32
+F_ACT_CODES = {"none": 0, "relu": 1, "relu6": 2, "relu2": 3, "silu": 4,
+               "gelu": 5, "hardswish": 6}
+
+
+def f_act_code(act: str) -> int:
+    if act not in F_ACT_CODES:
+        raise ValueError(f"activation {act!r} has no float GEMM epilogue "
+                         f"(have {sorted(F_ACT_CODES)})")
+    return F_ACT_CODES[act]

@@ -15,6 +15,11 @@ PyTorch version:
     packed int4 weights with per-group scale and zero (the w4a8 LM
     projections; the residual variant carries the O / down projection's
     residual add).  Kernel in csrc/conv_pe_w4.cu.
+  * `matmul_f_fused` -- replaces `matmul_f_fused`, kernel body `_kernel_f`
+    (:429): the float GEMM with f32 accumulation, bias and act, which
+    runs every float projection of the training path (ops.linear_f on
+    backend="cuda"), forward and backward, through the autograd Function
+    `MatmulF`.  Kernel in csrc/conv_pe_f.cu.
 
 Bound on the H100 and the design's answer: see the note at the top of
 csrc/conv_pe.cu (bytes-bound 1x1 GEMMs; K loop inside the block, epilogue
@@ -44,6 +49,12 @@ def _bind_w4(lib: ctypes.CDLL) -> None:
                                _V, _I, _I, _V, _F, _V, _I, _F, _I, _F, _I,
                                _V]
     lib.conv_pe_w4.restype = _I
+
+
+def _bind_f(lib: ctypes.CDLL) -> None:
+    lib.conv_pe_f_gemm.argtypes = [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I,
+                                   _V]
+    lib.conv_pe_f_gemm.restype = _I
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -336,3 +347,106 @@ def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
     _build.check(err, name)
     _build.count(name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# matmul_f_fused (_kernel_f): the float GEMM of the training path
+# ---------------------------------------------------------------------------
+
+F_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def matmul_f_fused_plain(a: torch.Tensor, b: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         act: str = "none",
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version: ref.matmul_f_fused (f32 product, + bias, act in
+    f32, cast)."""
+    return ref.matmul_f_fused(a, b, bias, act, out_dtype)
+
+
+def _gemm_f(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+            act: str, out_dtype) -> torch.Tensor:
+    """One product: the kernel on CUDA tensors (counted as conv_pe_f), the
+    plain version on CPU tensors."""
+    if not a.is_cuda:
+        return matmul_f_fused_plain(a, b, bias, act, out_dtype)
+    if a.dtype not in F_DTYPES or out_dtype not in F_DTYPES:
+        raise ValueError(f"conv_pe_f takes f32 / bf16 operands and output, "
+                         f"got {a.dtype} -> {out_dtype}")
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"conv_pe_f: expected 2-D a / b, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if min(m, n, k) < 1:
+        raise ValueError(f"conv_pe_f: empty product {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    require(a, "a", a.dtype)
+    require(b, "b", a.dtype, (k, n))
+    if bias is not None:
+        require(bias, "bias", torch.float32, (n,))
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    err = _build.library("conv_pe_f", _bind_f).conv_pe_f_gemm(
+        a.data_ptr(), b.data_ptr(), ptr(bias), out.data_ptr(), m, n, k,
+        _build.f_act_code(act), int(a.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
+    _build.check(err, "conv_pe_f")
+    _build.count("conv_pe_f")
+    return out
+
+
+class MatmulF(torch.autograd.Function):
+    """act(a @ b + bias) with its gradient, every product on `_gemm_f`.
+
+    The reference trains through `jnp.dot` (its Pallas `_kernel_f` has no
+    backward), so the gradient is the same three products:
+      * act != "none": the pre-activation z = a @ b + bias is recomputed
+        in f32 (one more launch; the saved tensors stay the forward's
+        operands), and dz = dy * act'(z) by torch's own derivative of
+        ref.act_fn, in f32, cast to a's dtype;
+      * da = dz @ b^T and db = a^T @ dz, each one launch on contiguous
+        transposed copies, in a's / b's dtype;
+      * dbias = the f32 column sum of dz.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, bias, act, out_dtype):
+        ctx.save_for_backward(a, b, bias)
+        ctx.act = act
+        return _gemm_f(a, b, bias, act, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, bias = ctx.saved_tensors
+        if ctx.act == "none":
+            dz32 = dy.to(torch.float32)
+        else:
+            z = _gemm_f(a, b, bias, "none", torch.float32)
+            with torch.enable_grad():
+                z.requires_grad_(True)
+                y = ref.act_fn(ctx.act)(z)
+                (dz32,) = torch.autograd.grad(y, z, dy.to(torch.float32))
+        dz = dz32.to(a.dtype).contiguous()
+        da = db = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = _gemm_f(dz, b.t().contiguous(), None, "none", a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _gemm_f(a.t().contiguous(), dz, None, "none", b.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = dz32.sum(dim=0).to(bias.dtype)
+        return da, db, dbias, None, None
+
+
+def matmul_f_fused(a: torch.Tensor, b: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, act: str = "none",
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Fused float GEMM.  a [M, K] and b [K, N] both f32 or both bf16,
+    contiguous; bias f32 [N] or None; act any of ref.act_fn's; out_dtype
+    f32 or bf16.  Returns act(a @ b + bias) in out_dtype, differentiable
+    (MatmulF).  On CUDA tensors every product launches the kernel (one
+    forward; a recompute when act != "none" and two products in the
+    backward); on CPU tensors the plain version runs in their place."""
+    if a.dtype != b.dtype:
+        raise ValueError(f"conv_pe_f: a is {a.dtype}, b is {b.dtype}")
+    return MatmulF.apply(a, b, bias, act, out_dtype)

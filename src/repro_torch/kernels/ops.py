@@ -3,13 +3,15 @@
 Two backends (EngineConfig.backend):
   * "ref"  -- plain PyTorch (kernels/ref.py + the _epilogue chain): the
               calibration path and the bit-exact reference;
-  * "cuda" -- the hand-written Hopper kernels (conv_pe, conv_pe_w4, dwc_pe
-              with its 1-D causal conv, low_channel, misc_pe, flash_attn's
-              attention and paged gather), whose wrappers launch on CUDA
-              tensors and run their plain versions on CPU tensors.
+  * "cuda" -- the hand-written Hopper kernels (conv_pe with its float GEMM,
+              conv_pe_w4, dwc_pe with its 1-D causal conv, low_channel,
+              misc_pe, flash_attn's attention and paged gather), whose
+              wrappers launch on CUDA tensors and run their plain versions
+              on CPU tensors.
 
 The LM projections dispatch on the weight container: a QTensor runs the
-int8 Conv PE, a Q4Tensor (quant="w4a8") the int4 one.  `linear_group`
+int8 Conv PE, a Q4Tensor (quant="w4a8") the int4 one, a float weight the
+float GEMM (`linear_f`).  `linear_group`
 runs a fused projection group (Q/K/V, gate/up) as ONE launch over the
 members' weights concatenated along N on the CUDA backend.
 
@@ -150,9 +152,24 @@ def linear_w4(x, w: Q4Tensor, bias: Optional[torch.Tensor], act: str,
 
 def linear_f(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
              act: str, cfg: EngineConfig, out_dtype=None) -> torch.Tensor:
-    """Float path (calibration).  The product goes to torch.matmul, as the
-    reference leaves it to XLA."""
+    """Float path (training; calibration on backend="ref").
+
+    backend="cuda": the float Conv PE GEMM (conv_pe.matmul_f_fused, the
+    reference's Pallas `_kernel_f`) on x's rows and w cast to x's dtype:
+    the product accumulates in f32, the f32 bias and the act apply to the
+    f32 sum, and only the result is cast to out_dtype.  backend="ref": the
+    reference's `ops.linear_f`, whose product is rounded to x's dtype
+    before the bias add and the act, which then run in that dtype.  At
+    bf16 compute the two backends therefore differ by bf16 rounding (the
+    CUDA one follows the Pallas kernel, the ref one follows
+    `ops.linear_f`); at f32 compute by f32 rounding only."""
     out_dtype = out_dtype or x.dtype
+    if _kernels(cfg):
+        lead, kdim, n = x.shape[:-1], x.shape[-1], w.shape[-1]
+        out = conv_pe.matmul_f_fused(
+            x.reshape(-1, kdim).contiguous(), w.to(x.dtype).contiguous(),
+            None if bias is None else bias.to(torch.float32), act, out_dtype)
+        return out.reshape(*lead, n)
     out = x @ w.to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)

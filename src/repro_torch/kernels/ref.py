@@ -136,6 +136,18 @@ def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
     return _requant(act_fn(act)(x), out_scale, out_dtype)
 
 
+def matmul_f_fused(a: torch.Tensor, b: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, act: str = "none",
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """The float Conv PE GEMM (the reference's `_kernel_f`): A and B widened
+    to f32, the f32 product, + the f32 bias, the act in f32, then the cast
+    to out_dtype -- the Pallas kernel's epilogue order."""
+    x = a.to(torch.float32) @ b.to(torch.float32)
+    if bias is not None:
+        x = x + bias.to(torch.float32)
+    return act_fn(act)(x).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # C4: DWC PE -- depthwise convolution, NHWC
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """Transformer building blocks (the port's copy of the pieces of
-repro.models.layers that the compiled LM programs call).
+repro.models.layers that the compiled LM programs and the float training
+forward call).
 
 RMS norm, RoPE, the chunked online-softmax ("flash") attention the prefill
-AttnOps run, the single-token decode attention, and the attention / MLP
-parameter schemas.  As in the reference these are plain tensor code (the
+AttnOps and the training forward run, the single-token decode attention,
+and the attention / MLP parameter schemas and full-sequence layers
+(`attention_apply`, `mlp_apply`), whose projections go through
+ops.linear (on float weights the float Conv PE GEMM on backend="cuda").  As in the reference these are plain tensor code (the
 reference's `layers.flash_attention` is pure JAX, not its Pallas kernel),
 in f32, with the reference's block structure and operation order.  GQA is
 computed in grouped form: q [B, L, Hkv, G, D] against k/v [B, S, Hkv, D].
@@ -15,8 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.config import ArchConfig
-from repro_torch.kernels import flash_attn
+from repro_torch.core.config import ArchConfig, EngineConfig
+from repro_torch.kernels import flash_attn, ops
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -180,9 +183,49 @@ def attention_schema(arch: ArchConfig) -> dict:
     return s
 
 
+def attention_apply(p: dict, x: torch.Tensor, arch: ArchConfig,
+                    eng: EngineConfig, *, layer_kind: str, cos: torch.Tensor,
+                    sin: torch.Tensor, q_offset: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (the training forward): separate q / k / v
+    projections with their biases, RoPE, the chunked `flash_attention`
+    (plain torch, differentiable; local layers pass their window, and the
+    arch's logit softcap rides along), the O projection.  Returns
+    [B, L, d]."""
+    b, l, _ = x.shape
+    nh, nkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
+    g = nh // nkv
+    q = ops.linear(x, p["wq"], p.get("bq"), "none", eng)
+    q = q.reshape(b, l, nkv, g, hd)
+    k = ops.linear(x, p["wk"], p.get("bk"), "none", eng).reshape(b, l, nkv,
+                                                                 hd)
+    v = ops.linear(x, p["wv"], p.get("bv"), "none", eng).reshape(b, l, nkv,
+                                                                 hd)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    window = arch.local_window if layer_kind == "local" else 0
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          logit_softcap=arch.attn_softcap, q_offset=q_offset)
+    return ops.linear(out.reshape(b, l, nh * hd), p["wo"], None, "none", eng)
+
+
 def mlp_schema(arch: ArchConfig) -> dict:
     d, ff = arch.d_model, arch.d_ff
     s = {"wu": ParamSpec((d, ff)), "wd": ParamSpec((ff, d))}
     if arch.mlp_gated:
         s["wg"] = ParamSpec((d, ff))
     return s
+
+
+def mlp_apply(p: dict, x: torch.Tensor, arch: ArchConfig,
+              eng: EngineConfig) -> torch.Tensor:
+    """SwiGLU / GeGLU (or a plain up / act / down): the act rides the
+    gate (or up) projection's fused epilogue, as on the Conv PE."""
+    if arch.mlp_gated:
+        gate = ops.linear(x, p["wg"], None, arch.mlp_act, eng)
+        up = ops.linear(x, p["wu"], None, "none", eng)
+        h = (gate * up).to(x.dtype)
+    else:
+        h = ops.linear(x, p["wu"], None, arch.mlp_act, eng).to(x.dtype)
+    return ops.linear(h, p["wd"], None, "none", eng)

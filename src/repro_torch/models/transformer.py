@@ -1,13 +1,15 @@
 """Decoder-only LM: parameter and serving-cache schemas, the KV-cache
-helpers, and the eager mamba path (the port's copy of the parts of
-repro.models.transformer that the LM programs and ServeEngine call).
+helpers, the eager mamba path and the full-sequence training forward (the
+port's copy of the parts of repro.models.transformer that the LM
+programs, ServeEngine and the trainer call).
 
-Attention archs ("global" / "local" layers with a dense MLP) run as
-compiled engine programs (compiler.lower_transformer -> executor).  Archs
-the IR does not lower run the reference's eager `forward` / `prefill` /
-`decode`; of those, mamba layers (falcon-mamba) are ported.  Recurrent
-(RG-LRU) layers, MoE and eager attention layers raise NotImplementedError
-naming the slice that brings them.
+Attention archs ("global" / "local" layers with a dense MLP) serve as
+compiled engine programs (compiler.lower_transformer -> executor) and
+train through the full-sequence `forward`, which runs every ported layer
+kind.  Archs the IR does not lower serve on the reference's eager
+`prefill` / `decode`; of those, mamba layers (falcon-mamba) are ported.
+Recurrent (RG-LRU) layers, MoE and eager-serving attention layers raise
+NotImplementedError naming the slice that brings them.
 
 The reference writes the cache with functional JAX scatters whose
 out-of-range indices are dropped (`mode="drop"`, positive sentinels).  A
@@ -23,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.config import ArchConfig, EngineConfig
 from repro_torch.core.quant import QTensor
@@ -340,28 +343,91 @@ def lm_logits(params: dict, x: torch.Tensor,
     return logits
 
 
-def block_apply(p: dict, x: torch.Tensor, arch: ArchConfig,
-                eng: EngineConfig, state: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One residual mamba block, full-sequence (the callers check the
-    layer kind with `_eager_kind`).  Returns (x, new_state)."""
-    h, new_state = S.mamba_apply(
-        p["mixer"], L.rms_norm(x, p["norm"], arch.norm_eps), arch, eng,
-        state=state)
-    return x + h, new_state
+def _mlp_half(p: dict, x: torch.Tensor, arch: ArchConfig,
+              eng: EngineConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLP half of an attention block: pre-norm, MLP, post-norm, the
+    residual add.  Returns (x, aux) (aux 0: MoE is not ported)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" not in p:
+        return x, aux
+    h = L.mlp_apply(p["mlp"], L.rms_norm(x, p["mlp_norm"], arch.norm_eps),
+                    arch, eng)
+    if arch.post_norms:
+        h = L.rms_norm(h, p["post_mlp_norm"], arch.norm_eps)
+    return x + h, aux
+
+
+def block_apply(p: dict, x: torch.Tensor, kind: str, arch: ArchConfig,
+                eng: EngineConfig, *, cos=None, sin=None,
+                state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Tuple[Optional[dict], torch.Tensor]]:
+    """One residual block, full-sequence: a mamba block (with `state`, as
+    prefill runs it), or a "global" / "local" attention block with its
+    post-norms and MLP half.  Returns (x, (new_state, aux))."""
+    if kind == "mamba":
+        h, new_state = S.mamba_apply(
+            p["mixer"], L.rms_norm(x, p["norm"], arch.norm_eps), arch, eng,
+            state=state)
+        return x + h, (new_state, torch.zeros((), dtype=torch.float32,
+                                              device=x.device))
+    h = L.attention_apply(p["attn"], L.rms_norm(x, p["norm"], arch.norm_eps),
+                          arch, eng, layer_kind=kind, cos=cos, sin=sin)
+    if arch.post_norms:
+        h = L.rms_norm(h, p["post_attn_norm"], arch.norm_eps)
+    x, aux = _mlp_half(p, x + h, arch, eng)
+    return x, (None, aux)
+
+
+def _positions(batch: dict, b: int, l: int, device) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    return torch.broadcast_to(torch.arange(l, device=device)[None], (b, l))
 
 
 def forward(params: dict, batch: dict, arch: ArchConfig, eng: EngineConfig,
+            *, remat: str = "none", return_hidden: bool = False,
             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
-    """Full-sequence logits [B, L, V] f32 and the aux loss (0 without
-    MoE)."""
-    x = embed_tokens(params, batch["tokens"], arch, compute_dtype)
+    """Full-sequence logits [B, L, V] f32 and the aux loss (0 without MoE);
+    with return_hidden, the final-norm hidden states instead of logits.
+    Runs every ported layer kind: mamba, and the global / local attention
+    blocks of the training path.
+
+    remat "block" and "full" both wrap each block in
+    torch.utils.checkpoint.checkpoint(use_reentrant=False): the backward
+    recomputes the block from its input.  The math is the same as
+    "none"; only what is saved differs from the reference's JAX policies
+    ("block" there keeps the weight products' outputs,
+    `dots_with_no_batch_dims_saveable`)."""
+    if remat not in ("none", "block", "full"):
+        raise ValueError(f"remat {remat!r} not in ('none', 'block', 'full')")
+    if "embeds" in batch or arch.mrope:
+        raise NotImplementedError(
+            f"{arch.name}: the embeds frontend and M-RoPE are not ported "
+            "(the qwen2-vl slice)")
+    tokens = batch["tokens"]
+    b, l = tokens.shape
+    x = embed_tokens(params, tokens, arch, compute_dtype)
+    cos, sin = L.rope_angles(_positions(batch, b, l, tokens.device),
+                             arch.head_dim, arch.rope_theta)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run_block(x, p, kind):
+        x, (_, aux) = block_apply(p, x, kind, arch, eng, cos=cos, sin=sin)
+        return x, aux
+
     for i, p in enumerate(params["blocks"]):
-        _eager_kind(arch, i)
-        x, _ = block_apply(p, x, arch, eng)
+        kind = _ported_kind(arch, i)
+        if remat == "none":
+            x, aux = run_block(x, p, kind)
+        else:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                run_block, x, p, kind, use_reentrant=False)
+        aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
-    return lm_logits(params, x, arch), torch.zeros((), device=x.device)
+    if return_hidden:
+        return x, aux_total
+    return lm_logits(params, x, arch), aux_total
 
 
 def prefill(params: dict, cache: dict, batch: dict, arch: ArchConfig,
@@ -373,8 +439,8 @@ def prefill(params: dict, cache: dict, batch: dict, arch: ArchConfig,
     x = embed_tokens(params, tokens, arch, compute_dtype)
     new_layers = []
     for i, p in enumerate(params["blocks"]):
-        _eager_kind(arch, i)
-        x, st = block_apply(p, x, arch, eng, state=cache["layers"][i])
+        x, (st, _) = block_apply(p, x, _eager_kind(arch, i), arch, eng,
+                                 state=cache["layers"][i])
         new_layers.append(st)
     x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
     logits = lm_logits(params, x[:, -1:], arch)

@@ -9,7 +9,9 @@ Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
 stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
 counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes);
 every output must equal the plain version bit for bit, except the flash
-attention's, which agrees with its plain version to f32 rounding.
+attention's and the float GEMM's (K = 8960 among its shapes, f32 and bf16,
+every act, and its gradient), which agree with their plain versions to
+f32 rounding (the float GEMM at bf16 output to one bf16 ulp).
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -374,3 +377,75 @@ def test_flash_mha_rejects_unsupported(dev):
     assert _build.COUNTS == before
     out = ops.flash_mha(*qkv(l=9, s=8), causal=False, cfg=eng)
     assert out.shape == (1, 4, 9, 32) and bool(torch.isfinite(out).all())
+
+
+def _f_close(got, want):
+    """The float GEMM against its plain version: within 1e-5 of max|plain|
+    (f32 sums in another order), and at bf16 output also within one bf16
+    ulp of each element (the same f32 sum may round the other way)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.double(), want.double()
+    tol = 1e-5 * w.abs().max()
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(w.abs())
+        tol = tol + torch.ldexp(torch.ones_like(w), e - 8)
+    assert bool(((g - w).abs() <= tol).all()), (g - w).abs().max()
+
+
+@pytest.mark.parametrize("act", sorted(_build.F_ACT_CODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(37, 53, 29), (130, 8960, 67)])
+def test_conv_pe_f(dev, m, k, n, dtype, act):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        dev, dtype)
+    b = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) /
+                         np.sqrt(k)).to(dev, dtype)
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    before = _build.COUNTS.get("conv_pe_f", 0)
+    got = conv_pe.matmul_f_fused(a, b, bias, act, dtype)
+    assert _build.COUNTS["conv_pe_f"] == before + 1
+    _f_close(got, conv_pe.matmul_f_fused_plain(a, b, bias, act, dtype))
+    _f_close(conv_pe.matmul_f_fused(a, b, None, act, torch.float32),
+             conv_pe.matmul_f_fused_plain(a, b, None, act, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_conv_pe_f_grads(dev, dtype, act):
+    """MatmulF's gradients on the card against autograd through the plain
+    version, and its launches: one forward, a recompute when act !=
+    "none", and two products in the backward."""
+    rng = np.random.default_rng(5)
+    m, k, n = 70, 200, 90
+    a, b, dy = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        dev, dtype) for s in ((m, k), (k, n), (m, n)))
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    out, launches = [], []
+    for fn in (conv_pe.matmul_f_fused, conv_pe.matmul_f_fused_plain):
+        ts = [t.clone().requires_grad_(True) for t in (a, b, bias)]
+        before = _build.COUNTS.get("conv_pe_f", 0)
+        y = fn(*ts, act, dtype)
+        y.backward(dy)
+        out.append((y, *(t.grad for t in ts)))
+        launches.append(_build.COUNTS.get("conv_pe_f", 0) - before)
+    assert launches == [3 if act == "none" else 4, 0]
+    _f_close(out[0][0], out[1][0])
+    # the Function rounds dz to the operands' type before its products
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for g, w in zip(out[0][1:], out[1][1:]):
+        assert g.dtype == w.dtype
+        assert (g.double() - w.double()).abs().max() <= tol * w.double(
+        ).abs().max()
+
+
+def test_conv_pe_f_rejects_unsupported(dev):
+    before = dict(_build.COUNTS)
+    a = torch.ones(4, 8, device=dev)
+    for bad in (dict(a=a.half(), b=torch.ones(8, 4, device=dev).half()),
+                dict(a=a, b=torch.ones(8, 4, device=dev).t().contiguous().t()),
+                dict(a=a, b=torch.ones(8, 4, device=dev), act="tanh")):
+        with pytest.raises(ValueError):
+            conv_pe.matmul_f_fused(**bad)
+    assert _build.COUNTS == before

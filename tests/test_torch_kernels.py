@@ -353,11 +353,16 @@ def test_plain_versions_launch_nothing():
     assert _build.COUNTS == {}
 
 
-def test_cuda_backend_needs_int8_engine():
-    with pytest.raises(ValueError):
-        TEng(quant="none", backend="cuda")
+def test_engine_config_backends():
+    """The CUDA backend runs the int8 / int4 engines and, since the float
+    GEMM kernel, the float path (quant="none"); only the backends "ref"
+    and "cuda" exist.  The float path on the card is still no calibration
+    engine (tests/test_torch_train_slice.py holds that)."""
+    assert TEng(quant="none", backend="cuda").backend == "cuda"
     with pytest.raises(ValueError):
         TEng(quant="w8a8", backend="pallas")
+    with pytest.raises(ValueError):
+        TEng(quant="w4", backend="cuda")
 
 
 # ---------------------------------------------------------------------------
