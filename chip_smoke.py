@@ -9,7 +9,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      CUDA kernel from src/repro_torch/csrc (one nvcc per source, started
      together, into the git-ignored build/);
   2. MobileNetV2, full width, 224 px: one program run with every kernel
-     wrapper's arguments recorded, then a phase per kernel body at exactly
+     wrapper's arguments recorded, the int8 Conv PE's launch plan logged
+     per shape (kernels/conv_pe.plan: weight streaming at M <= 4, tensor-
+     core tiles above), then a phase per kernel body at exactly
      those shapes: each call's kernel output must equal its plain PyTorch
      version bit for bit (int8 codes and f32 logits; the kernels are built
      with --fmad=false and round like torch), and the kernel, its plain
@@ -22,8 +24,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      the trace served 10 times more for steady images/s and latency, and
      one wave profiled (wall, host enqueue, device time per kernel);
   4. ResNet50, full width, 224 px, on the same engine: the kernel phases of
-     its Low-Channel max-pool tail and residual pooled GEMM (timed), and a
-     bitwise check of every other kernel call at its shapes; then served
+     its Low-Channel max-pool tail, int8 Conv PE (plain and residual) and
+     residual pooled GEMM, each held bitwise and timed; then served
      like MobileNetV2 (counters 1/37/15/1 per program run), steady trace
      and wave profile;
   5. ResNet50 unfused (compile_calibrated(fuse=False), same weights and
@@ -50,8 +52,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      trace 10 times more for steady tokens/s and latency, and one profiled
      prefill and decode step; the served ids must equal the backend="ref"
      engine's and the dense-KV engine's; then the same trace under
-     quant="w8a8" (int8 Conv PE), with its int8 GEMMs timed at the LM's
-     shapes, equal to its ref run;
+     quant="w8a8" (int8 Conv PE), with its int8 GEMMs, their plans logged,
+     timed at the LM's shapes with the L2 flushed before every repeat (a
+     served step reads each layer's weights cold), 3 steady traces and one
+     profiled prefill and decode step, its ids equal to its ref run;
   9. gemma2-2b at full width (26 layers alternating local (window 4096)
      and global, d 2304, 8 / 4 heads of 256, d_ff 9216 gated tanh-gelu,
      vocab 256000, attention softcap 50, final softcap 30, post-norms,
@@ -75,7 +79,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      phases of the causal temporal conv (dwc1d, per prefill, against
      F.conv1d + F.silu) and of the int8 Conv PE at the four mamba
      projection shapes (per decode step and per prefill, per-token
-     a_scale), then the 8-request trace with the counters zeroed around it
+     a_scale, plans logged, L2 flushed before every repeat), then the
+     8-request trace with the counters zeroed around it
      (256 conv_pe per decode step; 256 conv_pe + 64 dwc1d per prefill),
      its ids equal to the backend="ref" engine's, the trace 3 times more
      for steady tokens/s and latency, and one profiled prefill and decode
@@ -165,12 +170,13 @@ PER_RUN = {
 # the kernels each path's phase times, at that path's shapes
 TIMED = {"mobilenetv2": ("low_channel", "conv_pe", "conv_pe_res", "dwc",
                          "conv_pe_pool"),
-         "resnet50": ("low_channel_max", "conv_pe_pool_res"),
+         "resnet50": ("low_channel_max", "conv_pe", "conv_pe_res",
+                      "conv_pe_pool_res"),
          "resnet50_unfused": ("misc_add",)}
 # the LM phase: launches per layer of one decode step and of one prefill
 LM = dict(arch="qwen2-1.5b", batch=4, max_seq=128, prefill_len=64,
           burst=4, page=16, requests=8, new_tokens=32, calib=(2, 64),
-          prompt_lens=(16, 64))
+          prompt_lens=(16, 64), w8a8_trials=3)
 LM_PER_LAYER = {
     "w4a8": {"decode": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
                         "paged_gather": 2},
@@ -259,41 +265,83 @@ def device_us(prof) -> dict:
     return per
 
 
-def cuda_ms(torch, fn, reps: int = REPS):
+_FLUSH = {}
+
+
+def l2_flush(torch):
+    """(flush, its kernel names): a read of 128 MB, more than the H100's
+    50 MB L2, so the next call finds its operands in HBM (a read leaves no
+    dirty lines to write back during that call).  Made once; the names are
+    read off a trace of the flush alone."""
+    from torch.profiler import ProfilerActivity, profile
+    if not _FLUSH:
+        buf = torch.ones(32 * 2**20, dtype=torch.int32, device="cuda")
+
+        def flush():
+            buf.sum()
+        flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush()
+            torch.cuda.synchronize()
+        _FLUSH.update(fn=flush, keys={e.key for e in prof.key_averages()
+                                      if _self_us(e) > 0})
+    return _FLUSH["fn"], _FLUSH["keys"]
+
+
+def cuda_ms(torch, fn, reps: int = REPS, cold: bool = False):
     """(device ms, wall ms) per call of `fn`, after two warm-up calls.
     Device ms is the summed duration of the kernels `fn` launches, from
     torch.profiler over `reps` calls; wall ms is CUDA events around `reps`
     back-to-back calls, which also counts the gaps where the device waits
-    for the host to launch the next kernel.  torch.profiler loses device
-    events: now and then all of a trace, at times a third, and in some
-    phases two events of every trace; a sum over such a trace reads
-    short.  Each call launches the same kernels, so a trace is whole when
+    for the host to launch the next kernel.  `cold`: the L2 is flushed
+    before every call (l2_flush), the flush's kernels are left out of the
+    device time, and wall ms is CUDA events around each call alone.
+    torch.profiler loses device events: now and then all of a trace, at
+    times a third, and in some phases two events of every trace; a sum over
+    such a trace reads short.  Each call launches the same kernels, so a trace is whole when
     every kernel name's event count is a multiple of `reps`; a second
-    trace is taken if the first is not.  If neither is whole, each kernel
-    name's time a call is its mean event time in the trace that holds
-    most of its events, times its launches a call: that count over
+    trace is taken if the first is not, and a trace with no event at all
+    is taken again, up to four traces in all.  If none is whole, each
+    kernel name's time a call is its mean event time in the trace that
+    holds most of its events, times its launches a call: that count over
     `reps`, rounded up (events are lost, never added)."""
     import math
     from torch.profiler import ProfilerActivity, profile
+    flush, skip = l2_flush(torch) if cold else (lambda: None, set())
     fn()
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    wall = start.elapsed_time(end) / reps
+    if cold:
+        pairs = []
+        for _ in range(reps):
+            flush()
+            pairs.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            pairs[-1][0].record()
+            fn()
+            pairs[-1][1].record()
+        torch.cuda.synchronize()
+        wall = sum(a.elapsed_time(b) for a, b in pairs) / reps
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end) / reps
     fullest = {}                # kernel name -> (us, count), most events
-    for _ in range(2):
+    kept = 0                    # traces with events
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                flush()
                 fn()
             torch.cuda.synchronize()
         trace = {e.key: (us, e.count) for e in prof.key_averages()
-                 if (us := _self_us(e)) > 0}
+                 if (us := _self_us(e)) > 0 and e.key not in skip}
         if trace and all(c % reps == 0 for _, c in trace.values()):
             return sum(us for us, _ in trace.values()) / 1e3 / reps, wall
         for name, (us, c) in trace.items():
@@ -301,9 +349,12 @@ def cuda_ms(torch, fn, reps: int = REPS):
                 fullest[name] = (us, c)
         log(f"torch.profiler trace lost events (event counts "
             f"{[c for _, c in trace.values()]} for {reps} calls)")
+        kept += bool(trace)
+        if kept == 2:
+            break
     if not fullest:
-        fail("torch.profiler reported no device time in two traces")
-    log("no whole trace in two: mean event times of the fullest traces")
+        fail("torch.profiler reported no device time in four traces")
+    log("no whole trace: mean event times of the fullest traces")
     return sum(us / c * math.ceil(c / reps)
                for us, c in fullest.values()) / 1e3, wall
 
@@ -570,11 +621,12 @@ def capture_calls(torch, run):
 
 
 def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
-                 plain_reps: int = REPS, tol=None):
+                 plain_reps: int = REPS, tol=None, cold: bool = False):
     """Each recorded call: kernel vs its plain version (bitwise, or with
     `tol` within tol x max|plain|); when `timed`, then the per-program-run
-    times of the kernel, the plain version and the library yardstick, and
-    the bound from the calls' bytes and operations."""
+    times of the kernel, the plain version and the library yardstick (each
+    with the L2 flushed before every repeat when `cold`), and the bound
+    from the calls' bytes and operations."""
     kern, plain = _wrappers()[name]
     if not calls:
         fail(f"{name}: the main path gave this kernel no call")
@@ -609,18 +661,18 @@ def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
         ops_s += t_ops
         bound += max(t_bytes, t_ops)
     result = {"max_abs_err": max_err, "calls_per_run": len(calls),
-              "tol": tol, "max_rel_err": max_rel}
+              "tol": tol, "max_rel_err": max_rel, "cold": cold}
     if not timed:
         return result
 
     def run_all(fn):
         return lambda: [fn(*a, **k) for a, k in calls]
 
-    ms, wall_ms = cuda_ms(torch, run_all(kern), reps)
-    plain_ms, _ = cuda_ms(torch, run_all(plain), plain_reps)
+    ms, wall_ms = cuda_ms(torch, run_all(kern), reps, cold)
+    plain_ms, _ = cuda_ms(torch, run_all(plain), plain_reps, cold)
     libs = [library_fn(torch, name, kern, a, k) for a, k in calls]
     library_ms = (None if None in libs else
-                  cuda_ms(torch, lambda: [f() for f in libs], reps)[0])
+                  cuda_ms(torch, lambda: [f() for f in libs], reps, cold)[0])
     result.update({"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
                    "bound_ms": bound * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations",
@@ -634,11 +686,36 @@ def log_kernel(name, r, per="program run"):
     held = ("bitwise equal to plain" if r["tol"] is None else
             f"within {r['tol']} x max|plain| of plain (max_rel_err "
             f"{r['max_rel_err']:.3e})")
+    cold = ", L2 flushed before each repeat" if r["cold"] else ""
     log(f"kernel {name}: {r['calls_per_run']} calls/run, {held} "
-        f"(max_abs_err {r['max_abs_err']}), per {per}: "
+        f"(max_abs_err {r['max_abs_err']}), per {per}{cold}: "
         f"kernel_ms {r['ms']:.4f} (device; {r['wall_ms']:.4f} wall) "
         f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
         f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def log_plans(label, calls):
+    """The launch plan (kernels/conv_pe.plan: path, tile, K splits, copy
+    widths, epilogue placement) of each int8 Conv PE shape among `calls`
+    ({kernel name: [(args, kwargs)]}), with its call count: a run shows
+    where each of the two paths is taken."""
+    from repro_torch.kernels import conv_pe
+    shapes = {}
+    for name in ("conv_pe", "conv_pe_res"):
+        for args, _ in calls.get(name, ()):
+            a, b = args[0], args[1]
+            key = (name, a.shape[0], b.shape[1], a.shape[1],
+                   conv_pe.byte_align(a), conv_pe.byte_align(b))
+            shapes[key] = shapes.get(key, 0) + 1
+    paths = {}
+    for (name, m, n, k, aa, ba), count in sorted(shapes.items()):
+        p = conv_pe.plan(m, n, k, aa, ba)
+        paths[p.path] = paths.get(p.path, 0) + count
+        log(f"plan {label} {name} M={m} N={n} K={k} x{count}: {p.path} "
+            f"tile {p.bm}x{p.bn}, {p.splits} K split(s) of {p.ks}, copies "
+            f"{p.wa}/{p.wb} B, epilogue "
+            f"{'fused' if p.fused else 'pass'}")
+    log(f"plan {label}: calls by path {json.dumps(paths, sort_keys=True)}")
 
 
 def steady_serving(torch, engine, name, images):
@@ -764,13 +841,14 @@ def serve_model(torch, engine, cfg, images, ref_eng, results):
         f"{stats['fused_adds']}, fused pools {stats['fused_pools']}")
 
     calls = capture_calls(torch, lambda: engine.infer(cfg.name, images[:4]))
+    log_plans(cfg.name, calls)
     for name in PER_RUN[cfg.name]:
         timed = name in TIMED[cfg.name]
         with torch.inference_mode():
             r = kernel_phase(torch, name, calls[name], timed)
         if timed:
-            results[name] = r
-            log_kernel(name, r)
+            results.setdefault(name, r)     # the JSON line: the first model
+            log_kernel(f"{name} ({cfg.name})", r)
         else:
             log(f"kernel {name} at {cfg.name} shapes: {r['calls_per_run']} "
                 f"calls/run, bitwise equal to plain (max_abs_err "
@@ -843,6 +921,7 @@ def unfused_path(torch, cfg, params, calib, images, eng, ref_eng,
         f"logits")
     calls = capture_calls(
         torch, lambda: compiler.execute(program, qparams, waves[0], eng))
+    log_plans(label, calls)
     for name in PER_RUN[label]:
         timed = name in TIMED[label]
         with torch.inference_mode():
@@ -1041,13 +1120,15 @@ def lm_serve(torch, engine, prompts, label, per_layer=None, cfg=LM):
 
 
 def lm_kernel_phases(torch, engine, prompts, names, results, label,
-                     per_layer, cfg=LM, timed=True):
+                     per_layer, cfg=LM, timed=True, cold=False):
     """Every kernel call of one prefill and one decode step (one request
     per slot, one new token), each held bitwise against its plain version;
     when `timed`, the decode step's calls timed (into `results` when given)
-    and the prefill's.  Returns the recorded calls."""
+    and the prefill's, with the L2 flushed before every repeat when `cold`.
+    Returns the recorded calls."""
     calls = capture_calls(torch, lambda: engine.generate(
         prompts[:cfg["batch"]], max_new_tokens=1))
+    log_plans(label, calls)
     for name in names:
         layers = (n_global(engine.arch) if name in GLOBAL_ONLY
                   else engine.arch.n_layers)
@@ -1072,13 +1153,14 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label,
         # the plain int4 GEMM runs its groups in sequence (thousands of
         # launches a step), so it is timed over fewer repeats
         with torch.inference_mode():
-            r = kernel_phase(torch, name, dec, plain_reps=3)
+            r = kernel_phase(torch, name, dec, plain_reps=3, cold=cold)
         log_kernel(f"{name} ({label})", r, per="decode step")
         if results is not None:
             results[name] = r
         if pre:
             with torch.inference_mode():
-                r = kernel_phase(torch, name, pre, reps=5, plain_reps=2)
+                r = kernel_phase(torch, name, pre, reps=5, plain_reps=2,
+                                 cold=cold)
             log_kernel(f"{name} ({label})", r, per="prefill")
     return calls
 
@@ -1277,10 +1359,12 @@ def lm_path(torch, results, add):
     # -- w8a8: the int8 Conv PE at the LM's shapes ---------------------------
     engine = lm_engine(torch, arch, params, calib, "w8a8", "cuda", "paged")
     lm_kernel_phases(torch, engine, prompts, ("conv_pe", "conv_pe_res"),
-                     None, "w8a8 LM", LM_PER_LAYER["w8a8"])
+                     None, "w8a8 LM", LM_PER_LAYER["w8a8"], cold=True)
     ids8, counts, _ = lm_serve(torch, engine, prompts, "w8a8/cuda/paged",
                                LM_PER_LAYER["w8a8"])
     add(counts)
+    steady_lm(torch, engine, prompts, "w8a8/cuda/paged", LM["w8a8_trials"])
+    log_profile("lm w8a8", lm_profile(torch, engine, prompts))
     del engine
     torch.cuda.empty_cache()
     other = lm_engine(torch, arch, params, calib, "w8a8", "ref", "paged")
@@ -1517,6 +1601,7 @@ def ssm_kernel_phases(torch, engine, prompts, results):
         r = kernel_phase(torch, "dwc1d", conv)
     results["dwc1d"] = r
     log_kernel("dwc1d (falcon-mamba)", r, per="prefill")
+    log_plans("falcon-mamba", calls)
     groups = {}
     for a, k in calls["conv_pe"]:
         groups.setdefault((a[0].shape[0],) + tuple(a[1].shape), []).append(
@@ -1529,7 +1614,7 @@ def ssm_kernel_phases(torch, engine, prompts, results):
         with torch.inference_mode():
             r = kernel_phase(torch, "conv_pe", grp,
                              reps=REPS if dec else 5,
-                             plain_reps=REPS if dec else 3)
+                             plain_reps=REPS if dec else 3, cold=True)
         log_kernel(f"conv_pe (falcon-mamba M={m} K={kk} N={n})", r,
                    per="decode step" if dec else "prefill")
     if len(groups) != 8:
@@ -1999,6 +2084,11 @@ def main() -> int:
     # -- 10. falcon-mamba-7b served on the eager SSM path ----------------------
     t0 = time.perf_counter()
     ssm_path(torch, results, add)
+    # the last cold phase: the L2 flush's 128 MB and the int8 Conv PE's
+    # scratch go before training measures its peak memory
+    from repro_torch.kernels import conv_pe
+    _FLUSH.clear()
+    conv_pe._SCRATCH.clear()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase falcon-mamba-7b {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,389 @@
+#!/usr/bin/env python3
+"""The int8 Conv PE's two planned paths, side by side on the card.
+
+    PYTHONPATH=src python scripts/conv_pe_probe.py
+    python scripts/conv_pe_probe.py --serve [--src OTHER_TREE/src]
+
+Default: for each shape, every candidate plan -- the planner's own, the
+other path where both kernels take the shape, other K splits of the
+tensor-core tiles, the other epilogue placement -- is launched through
+`conv_pe.matmul_int8_fused` with `conv_pe.plan` replaced by that plan for
+the call, held bit for bit against the plain version, and timed with
+chip_smoke's `cuda_ms(cold=True)` over REPS calls, the 50 MB L2 flushed
+before each (as a served decode step finds its weights cold): device ms a
+call from torch.profiler (every kernel the call launches -- the split's
+zero fill too -- and not the flush; only whole traces, as cuda_ms says),
+and the mean CUDA-event ms around each call in brackets.
+`torch._int_mm` on the same operands (M padded to 32, the weights laid out
+"TN" outside the timing) is timed the same way as the yardstick.  The
+planner's thresholds (STREAM_MAX_M, STREAM_MIN_KN, the split and
+fused-epilogue rules) are read off these lines.  Last, the wrapper's host
+cost a call (back-to-back calls at shapes the device finishes first) and
+its parts.
+
+--serve: MobileNetV2 and ResNet50 (224 px, seeded weights) served as
+chip_smoke serves them, the variants interleaved trace by trace (the host
+is shared and drifts): steady images/s, the host enqueue of a program run,
+the host time of a wave's Conv PE calls replayed, and device time a wave
+(chip_smoke.profile_wave).  Variants: the planner
+as it is; the scratch allocated on every call; the epilogue fused on
+every unsplit plan.  With --src the same runs use the `repro_torch` of
+another tree (its own variant only), so two commits compare in one
+machine: run parent, this tree, this tree, parent.
+
+Needs one GPU; prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+REPS = 30
+SERVE_TRIALS = 30
+# (N, K): the LM decode projections (falcon-mamba x_proj, out_proj,
+# in_proj, dt_proj; qwen2 down, QKV, gate/up, O) at M = 4 and 8; then
+# (M, N, K) prefill and CNN shapes
+DECODE = [(288, 8192), (4096, 8192), (16384, 4096), (8192, 256),
+          (1536, 8960), (2048, 1536), (17920, 1536), (1536, 1536)]
+PREFILL = [(256, 288, 8192), (256, 16384, 4096), (256, 8192, 256),
+           (256, 4096, 8192), (256, 2048, 1536), (256, 17920, 1536),
+           (256, 1536, 1536), (256, 1536, 8960)]
+CNN = [(50176, 96, 16), (50176, 16, 32), (12544, 144, 24), (12544, 24, 144),
+       (3136, 192, 32), (784, 384, 64), (196, 1280, 320), (12544, 256, 576),
+       (3136, 512, 1152), (784, 2048, 4608)]
+X_PROJ_SPLITS = (1, 2, 4, 8, 16, 22, 32, 64)
+# host cost: shapes whose device time is well under the wrapper's host time
+HOST = [(4, 1536, 1536), (784, 64, 192), (784, 384, 64), (4, 17920, 1536)]
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def operands(torch, np, m, n, k, rng):
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    wsc = torch.from_numpy(rng.uniform(0.005, 0.05, (1, n)).astype(
+        np.float32))
+    return a.cuda(), b.cuda(), wsc.cuda()
+
+
+def run_plan(torch, smoke, conv_pe, p, a, b, wsc):
+    """(bitwise, (device ms, wall ms)) of the product on plan p."""
+    orig = conv_pe.plan
+    conv_pe.plan = lambda *args: p
+
+    def call():
+        return conv_pe.matmul_int8_fused(a, b, 0.0173, wsc, None, "relu",
+                                         0.0621)
+    try:
+        want = conv_pe.matmul_int8_fused_plain(a, b, 0.0173, wsc, None,
+                                               "relu", 0.0621)
+        ok = bool(torch.equal(call(), want))
+        ms = smoke.cuda_ms(torch, call, REPS, cold=True)
+    finally:
+        conv_pe.plan = orig
+    return ok, ms
+
+
+def int_mm_ms(torch, smoke, a, b):
+    m, k = a.shape
+    ap = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8,
+                     device="cuda")
+    ap[:m] = a
+    bt = b.t().contiguous().t()
+    return smoke.cuda_ms(torch, lambda: torch._int_mm(ap, bt), REPS,
+                         cold=True)
+
+
+def report(tag, m, n, k, p, ok, ms, lib):
+    bound = (m * k + k * n + m * n) / 3.35e12 * 1e3
+    log(f"{tag} M={m} N={n} K={k}: {p.path} {p.bm}x{p.bn} splits "
+        f"{p.splits} ks {p.ks} wa {p.wa} wb {p.wb} "
+        f"{'fused' if p.fused else 'pass'}: {ms[0]:.4f} ms "
+        f"({ms[1]:.4f}) {'bitwise' if ok else 'DIFFERS'}; int_mm "
+        f"{lib[0]:.4f} ({lib[1]:.4f}) ms; bytes bound {bound:.4f} ms")
+    return ok
+
+
+def host_us(torch, fn, n=300) -> float:
+    """Host us a call over n back-to-back calls: the device keeps up, so the
+    loop runs at the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def plans(torch, np, smoke, conv_pe) -> bool:
+    rng = np.random.default_rng(0)
+    good = True
+
+    def planned(a, b):
+        m, k = a.shape
+        return conv_pe.plan(m, b.shape[1], k, conv_pe.byte_align(a),
+                            conv_pe.byte_align(b))
+
+    for m in (4, 8):
+        for n, k in DECODE:
+            a, b, wsc = operands(torch, np, m, n, k, rng)
+            lib = int_mm_ms(torch, smoke, a, b)
+            p = planned(a, b)
+            cands = [("mma", conv_pe.mma_plan(m, n, k, p.wa, p.wb))]
+            if m <= conv_pe.STREAM_MAX_M:
+                s = conv_pe.stream_plan(m, n, k, p.wa, p.wb)
+                splits, ks = conv_pe._slices(
+                    k, 2 * math.ceil(conv_pe.SMS / math.ceil(n / s.bn)),
+                    conv_pe.STREAM_KG)
+                cands += [("stream", s),
+                          ("stream waves 2", s._replace(
+                              splits=splits, ks=ks, fused=splits == 1))]
+            for tag, q in cands:
+                tag += " (planned)" if q == p else ""
+                good &= report(f"decode {tag}", m, n, k, q,
+                               *run_plan(torch, smoke, conv_pe, q, a, b,
+                                         wsc), lib)
+    m, n, k = PREFILL[0]
+    a, b, wsc = operands(torch, np, m, n, k, rng)
+    lib = int_mm_ms(torch, smoke, a, b)
+    for s in X_PROJ_SPLITS:
+        ks = math.ceil(math.ceil(k / s) / conv_pe.MMA_BK) * conv_pe.MMA_BK
+        q = planned(a, b)._replace(splits=math.ceil(k / ks), ks=ks,
+                                   fused=s == 1)
+        good &= report(f"x_proj split {s}", m, n, k, q,
+                       *run_plan(torch, smoke, conv_pe, q, a, b, wsc), lib)
+    for m, n, k in PREFILL + CNN:
+        a, b, wsc = operands(torch, np, m, n, k, rng)
+        p = planned(a, b)
+        lib = int_mm_ms(torch, smoke, a, b)
+        good &= report("planned", m, n, k, p,
+                       *run_plan(torch, smoke, conv_pe, p, a, b, wsc), lib)
+        cands = []
+        if p.splits == 1:                     # the other epilogue placement
+            q = p._replace(fused=not p.fused)
+            cands.append(("fused" if q.fused else "epilogue pass", q))
+        if p.path == "mma" and p.bn < 128:
+            cands.append(("wide tile", p._replace(bn=128, fused=False)))
+        for tag, q in cands:
+            good &= report(tag, m, n, k, q,
+                           *run_plan(torch, smoke, conv_pe, q, a, b, wsc),
+                           lib)
+    return good
+
+
+def host(torch, np, conv_pe) -> None:
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(1)
+    for m, n, k in HOST:
+        a, b, wsc = operands(torch, np, m, n, k, rng)
+        p = conv_pe.plan(m, n, k, 16, 16)
+        ap = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8,
+                         device="cuda")
+        bt = b.t().contiguous().t()
+        wrap = host_us(torch, lambda: conv_pe.matmul_int8_fused(
+            a, b, 0.0173, wsc, None, "relu", 0.0621))
+        lib = host_us(torch, lambda: torch._int_mm(ap, bt))
+        plan_us = host_us(torch, lambda: conv_pe.plan(m, n, k, 16, 16))
+        log(f"host M={m} N={n} K={k} {p.path} splits {p.splits} "
+            f"{'fused' if p.fused else 'pass'}: wrapper {wrap:.1f} us a "
+            f"call, torch._int_mm {lib:.1f} us, plan() {plan_us:.2f} us")
+    # the wrapper's parts, on the last shape's operands
+    lib_ = conv_pe._lib()
+    stream = _build.stream_ptr(a)
+    args = (a.data_ptr(), b.data_ptr(), 0, m, n, k, 7, 0, 0, 1, k, 1, 1, 1,
+            None, None, 1.0, wsc.data_ptr(), None, 0, 1, None, 1.0, None, 0,
+            1.0, 0, 1.0, 0, stream)
+    parts = {
+        "ctypes call (refused plan)": lambda: lib_.conv_pe_gemm(*args),
+        "stream_ptr": lambda: _build.stream_ptr(a),
+        "torch.empty out": lambda: torch.empty((m, n), device=a.device,
+                                               dtype=torch.int8),
+        "scratch (reused)": lambda: conv_pe._scratch(a, m * n, stream),
+        "torch.empty scratch": lambda: torch.empty(
+            m * n, dtype=torch.int32, device=a.device),
+        "require a_q": lambda: _build.require(a, "a_q", torch.int8),
+        "w_scale check": lambda: conv_pe._vec(wsc, "w_scale", n),
+        "byte_align x2": lambda: (conv_pe.byte_align(a),
+                                  conv_pe.byte_align(b)),
+        "act_code x2": lambda: (_build.act_code("relu"),
+                                _build.act_code("none")),
+    }
+    log("host parts: " + ", ".join(f"{k_} {host_us(torch, f, 2000):.2f} us"
+                                   for k_, f in parts.items()))
+
+
+def variants(torch, conv_pe):
+    """{name: (enter, leave)}: the serving variants this tree can run."""
+    if not hasattr(conv_pe, "stream_plan"):
+        return {"this tree": (lambda: None, lambda: None)}
+    orig_plan, orig_scratch = conv_pe.plan, conv_pe._scratch
+
+    def fused_unsplit(*args):
+        p = orig_plan(*args)
+        return p._replace(fused=True) if p.splits == 1 else p
+
+    def scratch_each_call(t, n, stream):
+        return torch.empty(n, dtype=torch.int32, device=t.device)
+
+    def setter(plan_fn, scratch_fn):
+        def enter():
+            conv_pe.plan, conv_pe._scratch = plan_fn, scratch_fn
+        return enter
+
+    def leave():
+        conv_pe.plan, conv_pe._scratch = orig_plan, orig_scratch
+    return {"planned": (setter(orig_plan, orig_scratch), leave),
+            "scratch each call": (setter(orig_plan, scratch_each_call),
+                                  leave),
+            "fused where unsplit": (setter(fused_unsplit, orig_scratch),
+                                    leave)}
+
+
+def _host_ms(torch, fn) -> float:
+    """Host ms of fn() from an idle device (synchronized before and after
+    the clock stops)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def serve(torch, np, smoke, conv_pe) -> bool:
+    """SERVE_TRIALS rounds; in each, every variant in turn: the host ms of
+    replaying the Conv PE calls of one wave (captured from the served
+    path), the host enqueue of one program run, and one 8-request trace's
+    images/s.  Then per variant one profiled wave (device time) and its
+    logits against the ref backend's."""
+    from repro_torch import compiler
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.core import engine as eng_lib
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.models.cnn import cnn_schema
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.cnn_engine import CNNServeEngine
+    engine = CNNServeEngine(eng_lib.paper_engine(backend="cuda"),
+                            wave_size=4)
+    ref_eng = EngineConfig(quant="w8a8", backend="ref")
+    models = {}
+    for seed, name in enumerate(("mobilenetv2", "resnet50")):
+        cfg = CNN_ZOO[name]
+        params = init_params(cnn_schema(cfg),
+                             torch.Generator().manual_seed(0), device="cuda")
+        rng = np.random.default_rng(seed)
+        hw = cfg.input_hw
+        calib = (rng.normal(size=(4, hw, hw, 3)) * 0.5).astype(np.float32)
+        images = (rng.normal(size=(8, hw, hw, 3)) * 0.5).astype(np.float32)
+        engine.register(cfg, params, calib_batches=[calib])
+        calls = smoke.capture_calls(
+            torch, lambda: engine.infer(name, images[:4]))
+        gemms = [(args, kw) for k in ("conv_pe", "conv_pe_res")
+                 for args, kw in calls[k]]
+        models[name] = images, gemms
+
+    def replay(gemms):
+        for args, kw in gemms:
+            conv_pe.matmul_int8_fused(*args, **kw)
+
+    def one_trace(name, images):
+        t0 = time.perf_counter()
+        for img in images:
+            engine.submit(name, img)
+            engine.pump()
+        engine.flush()
+        return len(images) / (time.perf_counter() - t0)
+
+    vars_ = variants(torch, conv_pe)
+    got = {}
+    for _ in range(SERVE_TRIALS):
+        for var, (enter, leave) in vars_.items():
+            enter()
+            try:
+                for name, (images, gemms) in models.items():
+                    run, qparams = engine._executor_for(name)
+                    buf = torch.from_numpy(images[:4]).cuda()
+                    rec = got.setdefault((var, name), ([], [], []))
+                    rec[0].append(_host_ms(torch, lambda: replay(gemms)))
+                    rec[1].append(_host_ms(torch,
+                                           lambda: run(qparams, buf)))
+                    rec[2].append(one_trace(name, images))
+            finally:
+                leave()
+    good = True
+    for var, (enter, leave) in vars_.items():
+        enter()
+        try:
+            for name, (images, gemms) in models.items():
+                run, qparams = engine._executor_for(name)
+                want = compiler.execute(
+                    engine.program_for(name), qparams,
+                    torch.from_numpy(images[:4]).cuda(), ref_eng)
+                ok = bool(np.array_equal(
+                    np.asarray(engine.infer(name, images[:4])),
+                    want.cpu().numpy()))
+                good &= ok
+                _, _, per = smoke.profile_wave(torch, engine, name,
+                                               images[:4])
+                gemm_ms, enq_ms, rate = (np.asarray(x)
+                                         for x in got[(var, name)])
+                log(f"serve {var} {name}: steady {np.median(rate):.2f} "
+                    f"images/s (median of {SERVE_TRIALS} interleaved "
+                    f"traces; {rate.min():.2f}-{rate.max():.2f}); host "
+                    f"enqueue of a program run {np.median(enq_ms):.3f} ms "
+                    f"(min {enq_ms.min():.3f}); its {len(gemms)} Conv PE "
+                    f"calls replayed {np.median(gemm_ms):.3f} ms (min "
+                    f"{gemm_ms.min():.3f}); device {sum(per.values()):.1f} "
+                    f"us a wave; logits "
+                    f"{'bitwise equal to' if ok else 'DIFFER from'} the ref "
+                    f"backend's")
+        finally:
+            leave()
+    return good
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--serve", action="store_true",
+                    help="compare served images/s across variants")
+    ap.add_argument("--src", help="import repro_torch from this directory")
+    args = ap.parse_args()
+    # repro_torch is imported before chip_smoke, which puts this tree's
+    # src/ first on the path: a --src tree's package is the one that stays
+    sys.path.insert(0, os.path.abspath(args.src or os.path.join(ROOT,
+                                                                "src")))
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build, conv_pe
+    sys.path.insert(0, ROOT)
+    import chip_smoke as smoke
+
+    if not torch.cuda.is_available():
+        print("conv_pe_probe: needs a CUDA device", file=sys.stderr)
+        return 1
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    log(f"repro_torch from {os.path.dirname(conv_pe.__file__)}")
+    _build.build_all()
+    if args.serve:
+        good = serve(torch, np, smoke, conv_pe)
+    else:
+        good = plans(torch, np, smoke, conv_pe)
+        host(torch, np, conv_pe)
+    log("all bitwise" if good else "SOME RESULT DIFFERS")
+    return 0 if good else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

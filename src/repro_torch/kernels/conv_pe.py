@@ -22,10 +22,13 @@ PyTorch version:
     `MatmulF`.  Kernel in csrc/conv_pe_f.cu.
 
 Bound on the H100 and the design's answer: see the note at the top of
-csrc/conv_pe.cu (bytes-bound 1x1 GEMMs; K loop inside the block, epilogue
-in registers, int8 codes out; the pooled variant never writes its
-pre-pool map).  The TPU kernels' block sizes and 128-padding are not
-carried over: the CUDA kernel picks its 64x64 tiles and masks ragged edges.
+csrc/conv_pe.cu.  `plan(M, N, K)` picks, per product, the kernel of
+`matmul_int8_fused`: split-K weight streaming at M <= 4 with >= 16 MiB of
+weights (bound by reading them once), int8 tensor-core tiles otherwise (128
+x 128 / 64 / 32, split along K where the tiles do not fill the SMs), with
+copy widths that never read past a row, and the epilogue fused or as a pass
+of its own.  The TPU kernels' block sizes and 128-padding are not carried
+over.
 
 On a CUDA tensor each wrapper checks its operands and launches its kernel
 or raises; on CPU tensors it runs the plain version (the CPU tests).
@@ -33,7 +36,9 @@ or raises; on CPU tensors it runs the plain version (the CPU tests).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -58,8 +63,9 @@ def _bind_f(lib: ctypes.CDLL) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.conv_pe_gemm.argtypes = [_V, _V, _V, _I, _I, _I, _V, _F, _V, _V, _I,
-                                 _I, _V, _F, _V, _I, _F, _I, _F, _I, _V]
+    lib.conv_pe_gemm.argtypes = [_V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _V, _V, _F, _V, _V, _I, _I, _V,
+                                 _F, _V, _I, _F, _I, _F, _I, _V]
     lib.conv_pe_gemm.restype = _I
     lib.conv_pe_pool.argtypes = [_V, _V, _V, _I, _I, _I, _I, _F, _V, _V, _I,
                                  _F, _V, _F, _I, _F, _F, _I, _F, _V]
@@ -77,6 +83,127 @@ def _is_scalar(s) -> bool:
 # ---------------------------------------------------------------------------
 # matmul_int8_fused (_kernel / _kernel_res)
 # ---------------------------------------------------------------------------
+
+SMS = 132                 # the H100 SXM's streaming multiprocessors
+STREAM_MAX_M = 4          # M up to this streams the weights (split K) ...
+STREAM_MIN_KN = 16 << 20  # ... when they hold this many bytes
+STREAM_BN = 128           # columns a stream block
+STREAM_KG = 128           # K rows one pass of a stream block covers
+STREAM_KS_MAX = 2048      # a stream block stages 4 x ks bytes of A
+MMA_BM, MMA_BK = 128, 64  # tensor-core tile rows, K bytes a stage
+MMA_KS_MIN = 256          # the shortest K slice a split tile walks
+
+
+class Plan(NamedTuple):
+    """One product's launch: `path` "stream" or "mma"; output tiles of bm x
+    bn; `splits` K slices of `ks` rows (the last one may be short, none is
+    empty); wa / wb the copy widths of A's and B's rows in bytes; `fused`:
+    the kernel runs the epilogue itself, else its int32 sums go to a scratch
+    and a second kernel runs it (always when K is split)."""
+    path: str
+    bm: int
+    bn: int
+    splits: int
+    ks: int
+    wa: int
+    wb: int
+    fused: bool
+
+
+def _width(extent: int, align: int) -> int:
+    """The widest copy (16 / 8 / 4 / 2 / 1 bytes) that divides a row of
+    `extent` bytes and the base pointer's alignment."""
+    for w in (16, 8, 4, 2, 1):
+        if extent % w == 0 and align % w == 0:
+            return w
+    return 1
+
+
+def _slices(k: int, want: int, granule: int):
+    """(splits, ks): about `want` K slices of a multiple of `granule` rows,
+    none empty."""
+    splits = max(1, min(want, math.ceil(k / granule)))
+    ks = math.ceil(math.ceil(k / splits) / granule) * granule
+    return math.ceil(k / ks), ks
+
+
+def stream_plan(m: int, n: int, k: int, wa: int, wb: int) -> Plan:
+    """Split-K weight streaming: 4 rows x 128 columns a block, K split so
+    that the grid covers the SMs about once, in slices of a multiple of 128
+    rows up to 2048."""
+    want = max(math.ceil(SMS / math.ceil(n / STREAM_BN)),
+               math.ceil(k / STREAM_KS_MAX))
+    splits, ks = _slices(k, want, STREAM_KG)
+    return Plan("stream", STREAM_MAX_M, STREAM_BN, splits, ks, wa, wb,
+                splits == 1)
+
+
+def mma_plan(m: int, n: int, k: int, wa: int, wb: int) -> Plan:
+    """Tensor-core tiles of 128 rows x 128 columns (64 for N <= 64, 32 for
+    N <= 32), K steps of 64; K split (slices of at least MMA_KS_MIN,
+    multiples of 64) only where the tiles fall under the SM count.  The
+    epilogue runs in the kernel (fused) only on unsplit tiles narrower than
+    128; the wide tiles' epilogue ran faster as a kernel of its own on
+    every shape measured."""
+    bn = 128 if n > 64 else 64 if n > 32 else 32
+    tiles = math.ceil(m / MMA_BM) * math.ceil(n / bn)
+    want = SMS // tiles if tiles < SMS else 1
+    splits, ks = _slices(k, max(1, min(want, k // MMA_KS_MIN)), MMA_BK)
+    return Plan("mma", MMA_BM, bn, splits, ks, wa, wb,
+                splits == 1 and bn < 128)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, a_align: int, b_align: int) -> Plan:
+    """The launch of one M x K x N int8 product, given the operands' byte
+    alignment (a pure function, cached: the served paths call it for every
+    product and are bound by the host): `stream_plan` at M <=
+    STREAM_MAX_M with K x N >= STREAM_MIN_KN bytes of weights, `mma_plan`
+    otherwise, with the widest copies that divide the rows and the
+    alignment.  (Measured on the H100 with scripts/conv_pe_probe.py: at
+    M = 8 and 16 the tensor-core tiles won every LM projection shape; at
+    M = 4 streaming won from 27.5 MB of weights up, the tiles at 13.8 MB
+    and below.)"""
+    if min(m, n, k) < 1:
+        raise ValueError(f"conv_pe: empty product M={m} N={n} K={k}")
+    wa, wb = _width(k, a_align), _width(n, b_align)
+    if m <= STREAM_MAX_M and k * n >= STREAM_MIN_KN:
+        return stream_plan(m, n, k, wa, wb)
+    return mma_plan(m, n, k, wa, wb)
+
+
+_SCRATCH: dict = {}       # (device, stream) -> int32 scratch of unfused plans
+
+
+def _scratch(t: torch.Tensor, n: int, stream: int) -> torch.Tensor:
+    """An int32 scratch of at least n values for a product on `stream`: one
+    buffer per device and stream, grown and never shrunk (launches on one
+    stream run in order, so a product's scratch is free once the next one
+    starts; the largest on the served paths is ~19 MB).  It saves the
+    host-bound paths an allocation a call."""
+    key = (t.get_device(), stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32,
+                                          device=t.device)
+    return buf
+
+
+def _vec(t: torch.Tensor, name: str, n: int) -> torch.Tensor:
+    """An f32 operand of n values ([n], [1, n] or [n, 1]) as the kernel reads
+    it: checked in place when contiguous (no view is made on this
+    host-bound path), else a contiguous copy."""
+    if not (t.is_cuda and t.dtype == torch.float32 and t.numel() == n):
+        raise ValueError(f"{name}: expected {n} float32 values on the card, "
+                         f"got {t.dtype}{tuple(t.shape)} on {t.device}")
+    return t if t.is_contiguous() else t.reshape(n)
+
+
+def byte_align(t: torch.Tensor) -> int:
+    """The alignment of t's first byte, up to 16 (what plan() takes)."""
+    ptr_ = t.data_ptr()
+    return 16 if ptr_ % 16 == 0 else ptr_ & -ptr_
+
 
 def _residual_tail(x, out_scale, out_dtype, residual, res_scale, mid_scale,
                    add_act):
@@ -122,7 +249,10 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
     [N]; bias f32 [N] or None; out_scale None (f32 out), a Python float, or
     an [N]-sized vector (int8 out).  residual [M, N] (int8 with res_scale,
     or f32) selects the residual variant: qdq at mid_scale (static chains),
-    + residual * res_scale, add_act, requant."""
+    + residual * res_scale, add_act, requant.  Runs `plan(M, N, K)`: one
+    kernel when the plan is fused, else the product into the stream's int32
+    scratch (zeroed first by a memset when K is split) and the epilogue
+    pass; counted once either way, as one product."""
     if not a_q.is_cuda:
         return matmul_int8_fused_plain(
             a_q, b_q, a_scale, w_scale, bias, act, out_scale, out_dtype,
@@ -132,10 +262,9 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
     n = b_q.shape[1]
     require(a_q, "a_q", torch.int8)
     require(b_q, "b_q", torch.int8, (k, n))
-    asc = None
-    if isinstance(a_scale, torch.Tensor):
-        asc = require(a_scale.reshape(m), "a_scale", torch.float32)
-    wsc = require(w_scale.reshape(n), "w_scale", torch.float32)
+    asc = (_vec(a_scale, "a_scale", m) if isinstance(a_scale, torch.Tensor)
+           else None)
+    wsc = _vec(w_scale, "w_scale", n)
     if bias is not None:
         require(bias, "bias", torch.float32, (n,))
     os_vec, os_val = None, 1.0
@@ -143,7 +272,7 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
         if _is_scalar(out_scale):
             os_val = float(out_scale)
         else:
-            os_vec = require(out_scale.reshape(n), "out_scale", torch.float32)
+            os_vec = _vec(out_scale, "out_scale", n)
     elif out_dtype != torch.float32:
         raise ValueError(f"conv_pe kernel writes f32 or int8, not {out_dtype}")
     if residual is not None:
@@ -153,15 +282,20 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
     out = torch.empty((m, n), device=a_q.device,
                       dtype=torch.int8 if out_scale is not None
                       else torch.float32)
+    p = plan(m, n, k, byte_align(a_q), byte_align(b_q))
+    stream = _build.stream_ptr(a_q)
+    part = None if p.fused else _scratch(a_q, m * n, stream)
     err = _lib().conv_pe_gemm(
-        a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n, k, ptr(asc),
+        a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n, k,
+        int(p.path == "mma"), p.bm, p.bn, p.splits, p.ks, p.wa, p.wb,
+        int(p.fused), ptr(part), ptr(asc),
         float(a_scale) if asc is None else 0.0, wsc.data_ptr(), ptr(bias),
-        _build.act_code(act), int(out_scale is not None), ptr(os_vec), os_val,
-        ptr(residual),
+        _build.act_code(act), int(out_scale is not None), ptr(os_vec),
+        os_val, ptr(residual),
         int(residual is not None and residual.dtype == torch.float32),
         float(res_scale), int(mid_scale is not None),
         float(mid_scale) if mid_scale is not None else 1.0,
-        _build.act_code(add_act), _build.stream_ptr(a_q))
+        _build.act_code(add_act), stream)
     name = "conv_pe" if residual is None else "conv_pe_res"
     _build.check(err, name)
     _build.count(name)

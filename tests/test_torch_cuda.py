@@ -49,13 +49,25 @@ def _check(got, want):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
 
 
+# the int8 Conv PE's shapes reach both planned paths and their edges: M <= 4
+# with >= 16 MiB of weights streams them (split K or not), every other shape
+# runs tensor-core tiles (M = 1 / 4 / 16 / 256 split along K, N = 24 on
+# 32-column tiles with the epilogue fused, 128-column tiles with the
+# epilogue pass); K = 16 / 24 / 1000 and N = 24 / 67 / 1000 rows that are
+# not 16-byte multiples, K = 8192 / 8960 long slices
 @pytest.mark.parametrize("m,k,n", [(50, 16, 24), (130, 320, 67),
-                                   (4, 1280, 1000)])
-@pytest.mark.parametrize("out_scale", [None, 0.0621])
+                                   (4, 1280, 1000), (1, 16, 24),
+                                   (4, 8192, 288), (16, 24, 1000),
+                                   (17, 1000, 2048), (256, 8192, 288),
+                                   (3136, 24, 24), (1, 8192, 2048),
+                                   (4, 8960, 2048), (4, 1536, 17920)])
+@pytest.mark.parametrize("out_scale", [None, 0.0621, "vector"])
 def test_conv_pe_gemm(dev, m, k, n, out_scale):
     rng = np.random.default_rng(m + k + n)
     a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
     wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
+    if out_scale == "vector":
+        out_scale = _f(rng, (n,), dev, 0.03, 0.09)
     before = _build.COUNTS.get("conv_pe", 0)
     got = conv_pe.matmul_int8_fused(a, b, 0.0173, wsc, bias, "relu6",
                                     out_scale)
@@ -64,16 +76,29 @@ def test_conv_pe_gemm(dev, m, k, n, out_scale):
                                                 "relu6", out_scale))
 
 
-@pytest.mark.parametrize("m,k,n", [(49, 96, 24), (300, 144, 32)])
-def test_conv_pe_residual(dev, m, k, n):
+@pytest.mark.parametrize("m,k,n", [(49, 96, 24), (300, 144, 32),
+                                   (4, 8960, 1536), (16, 1536, 2048),
+                                   (256, 8960, 1536), (4, 8960, 2048)])
+@pytest.mark.parametrize("res_dtype,mid", [(torch.int8, True),
+                                           (torch.int8, False),
+                                           (torch.float32, False)])
+def test_conv_pe_residual(dev, m, k, n, res_dtype, mid):
+    """int8 residuals (static chains, with and without mid_scale, int8 out)
+    and f32 ones (the LM's residual stream, f32 out)."""
     rng = np.random.default_rng(m)
     a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
     wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
-    r = _q(rng, (m, n), dev)
-    kw = dict(out_scale=0.091, residual=r, res_scale=0.047, mid_scale=0.083)
-    _check(conv_pe.matmul_int8_fused(a, b, 0.021, wsc, bias, "none", **kw),
-           conv_pe.matmul_int8_fused_plain(a, b, 0.021, wsc, bias, "none",
-                                           **kw))
+    if res_dtype == torch.int8:
+        kw = dict(out_scale=0.091, residual=_q(rng, (m, n), dev),
+                  res_scale=0.047, mid_scale=0.083 if mid else None)
+    else:
+        kw = dict(residual=torch.from_numpy(rng.normal(
+            size=(m, n)).astype(np.float32)).to(dev))
+    before = _build.COUNTS.get("conv_pe_res", 0)
+    got = conv_pe.matmul_int8_fused(a, b, 0.021, wsc, bias, "none", **kw)
+    assert _build.COUNTS["conv_pe_res"] == before + 1
+    _check(got, conv_pe.matmul_int8_fused_plain(a, b, 0.021, wsc, bias,
+                                                "none", **kw))
 
 
 @pytest.mark.parametrize("g,rows,k,n", [(4, 49, 320, 1280), (3, 16, 40, 70)])
@@ -316,12 +341,24 @@ def test_dwc1d_causal(dev, b, l, c, k, act, bias):
         dwc_pe.dwc1d_causal(x, w, bs, "relu")
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 8192, 288), (37, 256, 288)])
-def test_conv_pe_gemm_per_token_scale(dev, m, k, n):
+@pytest.mark.parametrize("m,k,n", [(4, 8192, 288), (37, 256, 288),
+                                   (1, 1000, 24), (256, 8192, 288),
+                                   (4, 4096, 16384)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_conv_pe_gemm_per_token_scale(dev, m, k, n, shift):
     """The mamba x_proj shape (N = 288, K = 8192 at full width) with a
-    per-token a_scale [M, 1], f32 out: the eager SSM path's GEMM."""
+    per-token a_scale [M, 1], f32 out: the eager SSM path's GEMM.  `shift`
+    moves both operands one byte off their allocation, so the planned
+    copies fall back to single bytes."""
     rng = np.random.default_rng(m + n)
-    a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=dev)
+        view = buf[shift:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    a, b = shifted(_q(rng, (m, k), dev)), shifted(_q(rng, (k, n), dev))
     asc, wsc = _f(rng, (m, 1), dev), _f(rng, (1, n), dev)
     _check(conv_pe.matmul_int8_fused(a, b, asc, wsc),
            conv_pe.matmul_int8_fused_plain(a, b, asc, wsc))

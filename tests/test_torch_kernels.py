@@ -340,6 +340,79 @@ def test_first_layer_conv_matches_ref_and_pallas():
 
 
 # ---------------------------------------------------------------------------
+# The int8 Conv PE's launch planner (pure Python; the kernels need the card)
+# ---------------------------------------------------------------------------
+
+def _cover(extent, step, count):
+    """How often each of [0, extent) is covered by `count` blocks of
+    `step` (the last clipped at `extent`); every block must be non-empty."""
+    hits = np.zeros(extent, np.int64)
+    for i in range(count):
+        lo, hi = i * step, min((i + 1) * step, extent)
+        assert lo < hi, f"block {i} of {count} x {step} is empty in {extent}"
+        hits[lo:hi] += 1
+    return hits
+
+
+@pytest.mark.parametrize("m,n,k,a_align,b_align", [
+    (1, 24, 16, 16, 16), (4, 288, 8192, 16, 16), (4, 16384, 4096, 16, 16),
+    (4, 17920, 1536, 16, 16), (3, 4096, 8192, 4, 8), (1, 16384, 4097, 1, 1),
+    (4, 1000, 1280, 16, 16), (2, 1536, 8960, 16, 16), (8, 67, 333, 1, 1),
+    (16, 24, 1000, 16, 16), (17, 2048, 8960, 16, 16),
+    (256, 288, 8192, 16, 16), (256, 16384, 4096, 16, 16),
+    (256, 1536, 1536, 16, 16), (3136, 24, 24, 16, 16),
+    (50176, 96, 16, 16, 16), (130, 67, 320, 4, 1), (256, 8192, 288, 1, 16)])
+def test_conv_pe_plan_covers_product_once(m, n, k, a_align, b_align):
+    """plan(M, N, K): its output tiles and K slices cover [0, M) x [0, N) x
+    [0, K) exactly once, the path follows M and the weights' size, the copy
+    widths divide the rows and the pointers' alignment, and each path's
+    slices fit its kernel (csrc/conv_pe.cu rejects any other plan)."""
+    p = conv_pe.plan(m, n, k, a_align, b_align)
+    stream = m <= conv_pe.STREAM_MAX_M and k * n >= conv_pe.STREAM_MIN_KN
+    assert p.path == ("stream" if stream else "mma")
+    for extent, step, count in ((m, p.bm, -(-m // p.bm)),
+                                (n, p.bn, -(-n // p.bn)),
+                                (k, p.ks, p.splits)):
+        assert (_cover(extent, step, count) == 1).all()
+    tiles = -(-m // p.bm) * -(-n // p.bn)
+    for w, extent, align in ((p.wa, k, a_align), (p.wb, n, b_align)):
+        assert w in (1, 2, 4, 8, 16) and extent % w == 0 and align % w == 0
+    if stream:
+        assert m <= p.bm and (p.bm, p.bn) == (4, conv_pe.STREAM_BN)
+        assert p.ks % conv_pe.STREAM_KG == 0
+        assert p.ks <= conv_pe.STREAM_KS_MAX
+        # K is split where the column tiles alone leave SMs idle
+        assert (p.splits > 1) == (tiles < conv_pe.SMS
+                                  and k > conv_pe.STREAM_KG)
+    else:
+        assert p.bm == conv_pe.MMA_BM and p.bn in (128, 64, 32)
+        assert p.ks % conv_pe.MMA_BK == 0
+        assert p.bn == 128 or n <= p.bn            # narrow N, narrow tiles
+        if p.splits > 1:                           # split only to fill SMs
+            assert tiles * p.splits <= conv_pe.SMS
+    assert not (p.fused and p.splits > 1)          # a split needs the pass
+    if (m, n, k) == (256, 288, 8192):              # x_proj at prefill
+        assert tiles == 6 and p.splits > 1
+
+
+def test_conv_pe_scratch_grows_per_stream():
+    """The unfused plans' int32 scratch: one buffer per device and stream,
+    reused while it is large enough, replaced by a larger one when not."""
+    t = torch.zeros(1, dtype=torch.int8)
+    conv_pe._SCRATCH.clear()
+    try:
+        a = conv_pe._scratch(t, 100, 7)
+        assert a.dtype == torch.int32 and a.numel() == 100
+        assert conv_pe._scratch(t, 60, 7) is a
+        b = conv_pe._scratch(t, 300, 7)
+        assert b.numel() == 300 and conv_pe._scratch(t, 100, 7) is b
+        assert conv_pe._scratch(t, 100, 8) is not b
+        assert len(conv_pe._SCRATCH) == 2
+    finally:
+        conv_pe._SCRATCH.clear()
+
+
+# ---------------------------------------------------------------------------
 # Launch counts: a wrapper counts only where it launches its kernel
 # ---------------------------------------------------------------------------
 
