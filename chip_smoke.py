@@ -89,16 +89,20 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      Adam moments, bf16 compute, TrainConfig(lr=3e-4, total_steps=8,
      warmup_steps=1, remat="none"), SyntheticTokens at batch 8 x seq 128):
      every float GEMM (conv_pe_f) product of one step -- 196 forward, 28
-     gate recomputes, 392 backward -- held against its plain version
-     within F_TOL x max|plain| (one bf16 ulp more at bf16 output) and timed
-     per shape with cuBLAS beside it; 8 steps through make_train_step
-     with the counters zeroed around them (616 conv_pe_f a step, nothing
-     else), finite losses, the last below the first; step ms, tokens/s,
-     mfu, clocked and profiled steps, peak memory; the ref backend's first
-     2 steps from the same (re-made) state, its step-1 loss and grad_norm
-     within TRAIN_LOSS_TOL / TRAIN_GNORM_TOL of the CUDA backend's; then
-     launch.train.main on the reduced model on the card with a checkpoint
-     and --resume;
+     gate recomputes, 392 backward -- planned on the tensor cores (a
+     product on the FFMA route fails), held against its plain version
+     within F_TOL x max|plain| (one bf16 ulp more at bf16 output; the
+     worst ratio to that bar and the plan logged per shape group) and
+     timed per shape with cuBLAS beside it, and the wrapper's host us a
+     call; 8 steps through make_train_step with the counters zeroed
+     around them (616 conv_pe_f a step, nothing else), step 0's loss and
+     grad_norm bit-identical to the captured first run of that step from
+     the same state, finite losses, the last below the first; step ms,
+     tokens/s, mfu, clocked and profiled steps, peak memory; the ref
+     backend's first 2 steps from the same (re-made) state, its step-1
+     loss and grad_norm within TRAIN_LOSS_TOL / TRAIN_GNORM_TOL of the
+     CUDA backend's; then launch.train.main on the reduced model on the
+     card with a checkpoint and --resume;
  12. one JSON line with every kernel's launches, error and times, then the
      device line.
 
@@ -1670,25 +1674,33 @@ def ssm_path(torch, results, add):
 # The training path: full-width qwen2-1.5b on the float GEMM kernel
 # ---------------------------------------------------------------------------
 
-def f_check(torch, got, want):
-    """(max abs err, elements apart) of a conv_pe_f call against its plain
-    version; fails past F_TOL x max|plain| (plus one bf16 ulp of each
-    element at bf16 output)."""
-    if got.dtype != want.dtype or got.shape != want.shape:
-        fail(f"conv_pe_f: kernel {got.dtype}{tuple(got.shape)} vs plain "
-             f"{want.dtype}{tuple(want.shape)}")
+def f_ratio(torch, got, want):
+    """(max abs err, elements apart, worst ratio of error to the bar) of a
+    conv_pe_f call against its plain version: the bar is F_TOL x
+    max|plain|, plus one bf16 ulp of each element at bf16 output; a
+    non-finite output counts as past it."""
     g, w = got.to(torch.float64), want.to(torch.float64)
     err = (g - w).abs()
-    tol = F_TOL * float(w.abs().max())
-    lim = torch.full_like(w, tol)
+    lim = torch.full_like(w, F_TOL * float(w.abs().max()))
     if want.dtype == torch.bfloat16:
         _, e = torch.frexp(w.abs())
         lim = lim + torch.ldexp(torch.ones_like(w), e - 8)
-    if not bool((err <= lim).all()) or not bool(torch.isfinite(g).all()):
-        fail(f"conv_pe_f: kernel differs from its plain version by "
-             f"{float(err.max())} (tolerance {tol} + one bf16 ulp at bf16 "
-             f"output) at {tuple(got.shape)}")
-    return float(err.max()), int((g != w).sum())
+    ratio = (float((err / lim).max()) if bool(torch.isfinite(g).all())
+             else float("inf"))
+    return float(err.max()), int((g != w).sum()), ratio
+
+
+def f_check(torch, got, want):
+    """f_ratio of a conv_pe_f call; fails past the bar."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"conv_pe_f: kernel {got.dtype}{tuple(got.shape)} vs plain "
+             f"{want.dtype}{tuple(want.shape)}")
+    err, apart, ratio = f_ratio(torch, got, want)
+    if not ratio <= 1.0:
+        fail(f"conv_pe_f: kernel differs from its plain version by {err} "
+             f"({ratio} x the bar: {F_TOL} x max|plain| + one bf16 ulp at "
+             f"bf16 output) at {tuple(got.shape)}")
+    return err, apart, ratio
 
 
 def capture_gemm_f(torch, run):
@@ -1709,34 +1721,62 @@ def capture_gemm_f(torch, run):
     return calls
 
 
+def gemm_f_host_us(torch, calls, trials: int = 5) -> float:
+    """Host us a call of the wrapper: the step's calls replayed back to back
+    (enqueue only, the card synchronized before each replay), the least of
+    `trials` replays over the call count."""
+    from repro_torch.kernels import conv_pe
+    best = None
+    with torch.no_grad():
+        for _ in range(trials):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for args in calls:
+                conv_pe._gemm_f(*args)
+            t = time.perf_counter() - t0
+            best = t if best is None else min(best, t)
+    torch.cuda.synchronize()
+    return best / len(calls) * 1e6
+
+
 def gemm_f_phase(torch, calls, n_forward):
-    """Every recorded call held against its plain version; then per shape
-    group (forward or backward, a, b, bias, act, types) one call timed:
-    the kernel, the plain version and cuBLAS (torch.matmul on the same
-    types, the bias and act in torch ops), times the group's calls a step,
-    against the bound (the larger of compulsory bytes at PEAK_BYTES and
-    2 M N K at PEAK_BF16).  The first `n_forward` calls are the forward's
-    (autograd runs the whole forward before the backward); the rest, the
-    gate recomputes and the backward products, are summed apart."""
+    """Every recorded call held against its plain version and planned on the
+    tensor-core route (a product on the FFMA route fails the phase); then
+    per shape group (forward or backward, a, b and their layouts, bias,
+    act, types) its plan and worst ratio of error to the bar logged and one
+    call timed: the kernel, the plain version and cuBLAS (torch.matmul on
+    the same types and views, the bias and act in torch ops), times the
+    group's calls a step, against the bound (the larger of compulsory bytes
+    at PEAK_BYTES and 2 M N K at PEAK_BF16).  The first `n_forward` calls
+    are the forward's (autograd runs the whole forward before the
+    backward); the rest, the gate recomputes and the backward products, are
+    summed apart.  Last, the wrapper's host us a call (gemm_f_host_us)."""
     from repro_torch.kernels import conv_pe
     from repro_torch.kernels.ref import act_fn
     max_err, apart, total = 0.0, 0, 0
-    groups = {}
+    groups, ratios = {}, {}
     with torch.no_grad():
         for i, (a, b, bias, act, out_dtype) in enumerate(calls):
+            p = conv_pe.plan_of(a, b, act)
+            if p.route != "wgmma":
+                fail(f"conv_pe_f: a {a.dtype}{tuple(a.shape)} x "
+                     f"{tuple(b.shape)} product of the step takes the "
+                     f"{p.route} route")
             got = conv_pe._gemm_f(a, b, bias, act, out_dtype)
             want = conv_pe.matmul_f_fused_plain(a, b, bias, act, out_dtype)
-            err, n = f_check(torch, got, want)
+            err, n, ratio = f_check(torch, got, want)
             max_err = max(max_err, err)
             if out_dtype == torch.bfloat16:
                 apart += n
                 total += got.numel()
             key = ("forward" if i < n_forward else "backward",
-                   tuple(a.shape), tuple(b.shape), bias is not None, act,
-                   str(a.dtype), str(out_dtype))
+                   tuple(a.shape), tuple(b.shape), p.a_mn, p.b_mn,
+                   bias is not None, act, str(a.dtype), str(out_dtype))
             groups.setdefault(key, []).append((a, b, bias, act, out_dtype))
+            ratios[key] = max(ratios.get(key, 0.0), ratio)
     log(f"kernel conv_pe_f: {len(calls)} calls of one step within {F_TOL} x "
-        f"max|plain| (max_abs_err {max_err}); at bf16 output {apart} of "
+        f"max|plain| (max_abs_err {max_err}; worst error "
+        f"{max(ratios.values()):.4f} x the bar); at bf16 output {apart} of "
         f"{total} elements one bf16 ulp apart, the rest equal")
     names = ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")
     tot = {"forward": dict.fromkeys(names, 0.0),
@@ -1747,6 +1787,13 @@ def gemm_f_phase(torch, calls, n_forward):
             a, b, bias, act, out_dtype = grp[0]
             m, k = a.shape
             n = b.shape[1]
+            p = conv_pe.plan_of(a, b, act)
+            log(f"plan conv_pe_f {key[0]} [{m}, {k}] x [{k}, {n}] "
+                f"{'a^T' if p.a_mn else 'a'} x {'b' if p.b_mn else 'b^T'} "
+                f"x{len(grp)}: {p.route} tile 128x128, {p.splits} K "
+                f"split(s) of {p.kps} steps, epilogue "
+                f"{'in a reduction pass' if p.pass_ else 'in the tiles'}; "
+                f"worst error {ratios[key]:.4f} x the bar")
             nbytes = (sum(_nbytes(t) for t in (a, b, bias) if t is not None)
                       + m * n * (2 if out_dtype == torch.bfloat16 else 4))
             t_bytes, t_ops = nbytes / PEAK_BYTES, 2.0 * m * n * k / PEAK_BF16
@@ -1768,14 +1815,15 @@ def gemm_f_phase(torch, calls, n_forward):
             bytes_s += c * t_bytes
             ops_s += c * t_ops
             log(f"kernel conv_pe_f {key[0]} [{m}, {k}] x [{k}, {n}] bias "
-                f"{key[3]} act {act} {key[5]} -> {key[6]}: {c} calls/step, "
+                f"{key[5]} act {act} {key[7]} -> {key[8]}: {c} calls/step, "
                 f"per call kernel_ms {ms:.4f} (device; {wall:.4f} wall) "
                 f"plain_ms {plain:.4f} library_ms {lib:.4f} (cuBLAS) "
                 f"bound_ms {max(t_bytes, t_ops) * 1e3:.4f} "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
                 f"{2.0 * m * n * k / ms / 1e9:.2f} TFLOP/s")
     r = {"max_abs_err": max_err, "calls_per_run": len(calls), "tol": F_TOL,
-         "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+         "host_us": gemm_f_host_us(torch, calls)}
     for name in names:
         r[name] = tot["forward"][name] + tot["backward"][name]
     for what, t in (("forward", tot["forward"]),
@@ -1785,6 +1833,10 @@ def gemm_f_phase(torch, calls, n_forward):
             f"(device; {t['wall_ms']:.4f} wall) plain_ms "
             f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} "
             f"bound_ms {t['bound_ms']:.4f}")
+    log(f"kernel conv_pe_f host: {r['host_us']:.2f} us a call (the step's "
+        f"{len(calls)} calls replayed, least of 5), "
+        f"{r['host_us'] * len(calls) / 1e3:.3f} ms a step against "
+        f"{r['ms']:.3f} ms of kernel time")
     return r
 
 
@@ -1867,7 +1919,10 @@ def train_path(torch, results, add):
     state = fresh_state()
 
     # -- the kernel at every product of one step -----------------------------
-    calls = capture_gemm_f(torch, lambda: cuda_step(state, pipe.batch_at(0)))
+    captured = {}
+    calls = capture_gemm_f(torch, lambda: captured.update(
+        m=cuda_step(state, pipe.batch_at(0))[1]))
+    captured = {k: float(v) for k, v in captured["m"].items()}
     if len(calls) != TRAIN_PER_STEP:
         fail(f"conv_pe_f: {len(calls)} products in one step, want "
              f"{TRAIN_PER_STEP}")
@@ -1897,6 +1952,13 @@ def train_path(torch, results, add):
             f"{met['accuracy']:.6f}, {walls[-1]:.1f} ms")
     torch.cuda.synchronize()
     counts = dict(_build.COUNTS)
+    for k in ("loss", "grad_norm"):
+        if first[k] != captured[k]:
+            fail(f"train: step 0 from the same state gave {k} "
+                 f"{captured[k]!r}, then {first[k]!r}: not bit-identical")
+    log(f"train step 0 twice from the same seeded state: loss "
+        f"{first['loss']!r} and grad_norm {first['grad_norm']!r} "
+        f"bit-identical")
     if counts != {"conv_pe_f": TRAIN_PER_STEP * steps}:
         fail(f"train: launches {counts}, want conv_pe_f "
              f"{TRAIN_PER_STEP} x {steps} steps and nothing else")

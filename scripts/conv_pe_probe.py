@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python scripts/conv_pe_probe.py
     python scripts/conv_pe_probe.py --serve [--src OTHER_TREE/src]
+    python scripts/conv_pe_probe.py --float [--host]
 
 Default: for each shape, every candidate plan -- the planner's own, the
 other path where both kernels take the shape, other K splits of the
@@ -30,6 +31,23 @@ as it is; the scratch allocated on every call; the epilogue fused on
 every unsplit plan.  With --src the same runs use the `repro_torch` of
 another tree (its own variant only), so two commits compare in one
 machine: run parent, this tree, this tree, parent.
+
+--float: the float GEMM (conv_pe_f) at the 15 shape groups of a
+full-width qwen2-1.5b training step (batch 8 x seq 128), each operand in
+the layout the step gives it (the backward's b^T and a^T as views): every
+candidate K split of the 128 x 128 tensor-core tiles forced through
+`conv_pe.plan_f`, held against the plain version (the worst ratio of error
+to chip_smoke's per-call bar, F_TOL x max|plain| plus one bf16 ulp at bf16
+output; above 1 fails) and timed with the L2 flushed before every call,
+beside cuBLAS bf16 (torch.matmul on the same views, the bias and act in
+torch ops) timed the same way; "(planned)" marks the split
+conv_pe.tc_splits picks, and its rule is read off these lines.  Then the
+wrapper's host us a call and its parts (--host: those alone).  Last, the
+fixed costs of the short products (float_fixed, warm L2 as chip_smoke
+times them; --fixed: those alone): each kernel of the planned call and of
+cuBLAS's, every K split, a ladder of K with its least-squares line (us at
+zero K steps and a step), and an empty kernel launched with the tiles'
+block and shared memory at the plan's grid.
 
 Needs one GPU; prints the card's name and power limit first.
 """
@@ -60,6 +78,11 @@ CNN = [(50176, 96, 16), (50176, 16, 32), (12544, 144, 24), (12544, 24, 144),
 X_PROJ_SPLITS = (1, 2, 4, 8, 16, 22, 32, 64)
 # host cost: shapes whose device time is well under the wrapper's host time
 HOST = [(4, 1536, 1536), (784, 64, 192), (784, 384, 64), (4, 17920, 1536)]
+# K splits tried at each float shape group (conv_pe.STEP_F_GROUPS); the
+# short products' fixed costs: their groups, and the K of the ladder
+F_SPLITS = (1, 2, 3, 4, 6, 8, 12)
+F_SMALL = ("fwd K/V", "da K/V", "db K/V", "da Q/O")
+F_LADDER = (64, 128, 256, 512, 1024)
 
 
 def log(*a):
@@ -352,11 +375,277 @@ def serve(torch, np, smoke, conv_pe) -> bool:
     return good
 
 
+def f_operands(torch, np, m, n, k, a_mn, b_nmaj, bias, rng):
+    """bf16 a [M, K] (a view of a stored [K, M] when a_mn), b [K, N] (a
+    view of a stored [N, K] unless b_nmaj), f32 bias [N] or None."""
+    a = torch.from_numpy(rng.normal(size=(k, m) if a_mn else (m, k)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    b = torch.from_numpy((rng.normal(size=(k, n) if b_nmaj else (n, k)) /
+                          np.sqrt(k)).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    bv = (torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).cuda()
+          if bias else None)
+    return (a.t() if a_mn else a), (b if b_nmaj else b.t()), bv
+
+
+def f_candidates(conv_pe, m, n, k, a_mn, b_nmaj, act):
+    """The tensor-core plans of a product at each reachable F_SPLITS K
+    split (no empty slice), with the reduction pass where it is needed."""
+    nk = math.ceil(k / conv_pe.TC_BK)
+    out = []
+    for s in F_SPLITS:
+        kps = math.ceil(nk / s)
+        if math.ceil(nk / kps) == s:
+            out.append(conv_pe.PlanF("wgmma", s, kps, a_mn, b_nmaj,
+                                     s > 1 or act not in conv_pe.TC_TILE_ACTS))
+    return out
+
+
+def kernel_us(torch, smoke, fn, reps=REPS):
+    """{kernel name: device us a call} of fn() from torch.profiler over
+    `reps` warm calls; a trace whose event counts are not a multiple of
+    `reps` (lost events) is taken again, up to four in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    per = {}
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: (us, e.count) for e in prof.key_averages()
+               if (us := smoke._self_us(e)) > 0}
+        if per and all(c % reps == 0 for _, c in per.values()):
+            break
+    return {k: us / reps for k, (us, _) in per.items()}
+
+
+EMPTY_SRC = r"""
+#include "conv_pe_f.cu"
+namespace {
+__global__ void __launch_bounds__(TC_THREADS, 1) empty_kernel() {}
+}
+// an empty kernel launched as conv_pe_f_tc launches gemm_tc_kernel: the
+// same block, the same dynamic shared memory, `grid` blocks
+extern "C" int empty_tc(int grid, void* stream) {
+  static bool sized = false;
+  if (!sized) {
+    cudaFuncSetAttribute(empty_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         TC_SMEM);
+    sized = true;
+  }
+  empty_kernel<<<grid, TC_THREADS, TC_SMEM,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_lib():
+    """ctypes library with empty_tc(grid, stream), compiled from EMPTY_SRC
+    against csrc/conv_pe_f.cu's constants (nvcc, the port's flags)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.BUILD.mkdir(exist_ok=True)
+    src = _build.BUILD / "probe_empty.cu"
+    out = _build.BUILD / "probe_empty.so"
+    src.write_text(EMPTY_SRC)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(out), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.empty_tc.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.empty_tc.restype = ctypes.c_int
+    return lib
+
+
+def float_fixed(torch, np, smoke, conv_pe) -> None:
+    """Where the short products' time goes (warm L2, as chip_smoke times
+    them), at the F_SMALL groups: the planned call's kernels and cuBLAS's;
+    every reachable K split; a ladder of K (F_LADDER, unsplit, the same M,
+    N and layouts) for the kernel and cuBLAS, with the least-squares line
+    through it (us at zero K steps, us a 64-deep step); and an empty kernel
+    launched with the tensor-core kernel's block and shared memory at the
+    plan's grid and at one block."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(3)
+    elib = empty_lib()
+    orig = conv_pe.plan_f
+    groups = {g[0]: g for g in conv_pe.STEP_F_GROUPS}
+
+    def fmt(per):
+        return ", ".join(f"{k.split('(')[0][:40]} {v:.2f}"
+                         for k, v in sorted(per.items()))
+
+    for tag in F_SMALL:
+        _, m, n, k, a_mn, b_nmaj, bias, act, bf16_out, _ = groups[tag]
+        out = torch.bfloat16 if bf16_out else torch.float32
+        f = conv_pe.ref.act_fn(act)
+
+        def timed(kk, plan=None):
+            a, b, bv = f_operands(torch, np, m, n, kk, a_mn, b_nmaj, bias,
+                                  rng)
+
+            def cublas():
+                y = torch.matmul(a, b)
+                if bv is not None:
+                    y = y.to(torch.float32) + bv
+                return f(y).to(out)
+            if plan is not None:
+                conv_pe.plan_f = lambda *args: plan
+            try:
+                ours = kernel_us(torch, smoke, lambda: conv_pe._gemm_f(
+                    a, b, bv, act, out))
+            finally:
+                conv_pe.plan_f = orig
+            return ours, kernel_us(torch, smoke, cublas)
+
+        p = orig(m, n, k, True, a_mn, b_nmaj, True, act)
+        ours, lib = timed(k)
+        log(f"fixed {tag} M={m} N={n} K={k} planned splits {p.splits}: "
+            f"{sum(ours.values()):.2f} us ({fmt(ours)}); cuBLAS "
+            f"{sum(lib.values()):.2f} us ({fmt(lib)})")
+        for q in f_candidates(conv_pe, m, n, k, a_mn, b_nmaj, act):
+            ours, _ = timed(k, q)
+            log(f"fixed {tag} splits {q.splits}: {sum(ours.values()):.2f} "
+                f"us ({fmt(ours)})")
+        xs, ys, ls = [], [], []
+        for kk in F_LADDER:
+            ours, lib = timed(kk, orig(m, n, kk, True, a_mn, b_nmaj, True,
+                                       act)._replace(
+                splits=1, kps=math.ceil(kk / conv_pe.TC_BK),
+                pass_=act not in conv_pe.TC_TILE_ACTS))
+            xs.append(math.ceil(kk / conv_pe.TC_BK))
+            ys.append(sum(ours.values()))
+            ls.append(sum(lib.values()))
+            log(f"fixed {tag} ladder K={kk}: kernel {ys[-1]:.2f} us, "
+                f"cuBLAS {ls[-1]:.2f} us")
+        for name, v in (("kernel", ys), ("cuBLAS", ls)):
+            slope, icpt = np.polyfit(xs, v, 1)
+            log(f"fixed {tag} {name} line: {icpt:.2f} us + {slope:.3f} us "
+                f"a 64-deep step")
+        tiles = math.ceil(m / conv_pe.TC_BM) * math.ceil(n / conv_pe.TC_BN)
+        a0 = torch.empty(1, device="cuda")
+        stream = _build.stream_ptr(a0)
+        for grid in (min(tiles * p.splits, conv_pe.SMS), 1):
+            us = kernel_us(torch, smoke, lambda: _build.check(
+                elib.empty_tc(grid, stream), "empty_tc"))
+            log(f"fixed {tag} empty kernel, {grid} blocks of the tiles' "
+                f"size: {sum(us.values()):.2f} us")
+
+
+def float_plans(torch, np, smoke, conv_pe) -> bool:
+    """Every candidate plan of each step shape group, against cuBLAS."""
+    rng = np.random.default_rng(2)
+    orig = conv_pe.plan_f
+    good, tot = True, {"planned": 0.0, "best": 0.0, "cublas": 0.0}
+    for tag, m, n, k, a_mn, b_nmaj, bias, act, bf16_out, calls in \
+            conv_pe.STEP_F_GROUPS:
+        a, b, bv = f_operands(torch, np, m, n, k, a_mn, b_nmaj, bias, rng)
+        out = torch.bfloat16 if bf16_out else torch.float32
+        want = conv_pe.matmul_f_fused_plain(a, b, bv, act, out)
+        f = conv_pe.ref.act_fn(act)
+
+        def cublas():
+            y = torch.matmul(a, b)
+            if bv is not None:
+                y = y.to(torch.float32) + bv
+            return f(y).to(out)
+        lib = smoke.cuda_ms(torch, cublas, REPS, cold=True)
+        lib_ratio = smoke.f_ratio(torch, cublas(), want)[2]
+        planned = orig(m, n, k, True, a_mn, b_nmaj, True, act)
+        cands = f_candidates(conv_pe, m, n, k, a_mn, b_nmaj, act)
+        best = None
+        for p in cands:
+            conv_pe.plan_f = lambda *args, _p=p: _p
+            try:
+                got = conv_pe._gemm_f(a, b, bv, act, out)
+                ratio = smoke.f_ratio(torch, got, want)[2]
+                ms = smoke.cuda_ms(
+                    torch, lambda: conv_pe._gemm_f(a, b, bv, act, out), REPS,
+                    cold=True)
+            finally:
+                conv_pe.plan_f = orig
+            ok = ratio <= 1.0
+            good &= ok or p != planned
+            flops = 2.0 * m * n * k
+            log(f"float {tag} M={m} N={n} K={k} "
+                f"{'aT' if a_mn else 'a'} x {'b' if b_nmaj else 'bT'}: "
+                f"splits {p.splits}"
+                f"{' (planned)' if p == planned else ''}: {ms[0]:.4f} ms "
+                f"({ms[1]:.4f}) {flops / ms[0] / 1e9:.1f} TFLOP/s, error "
+                f"{ratio:.3f} x bar{'' if ok else ' FAILS'}; cuBLAS "
+                f"{lib[0]:.4f} ({lib[1]:.4f}) ms, error {lib_ratio:.3f} x "
+                f"bar")
+            if p == planned:
+                tot["planned"] += calls * ms[0]
+            if ok and (best is None or ms[0] < best[0]):
+                best = (ms[0], p)
+        tot["cublas"] += calls * lib[0]
+        if best is None:
+            log(f"float {tag}: no candidate within the bar")
+            continue
+        tot["best"] += calls * best[0]
+        log(f"float {tag}: best splits {best[1].splits} {best[0]:.4f} ms; "
+            f"planned splits {planned.splits}")
+    log(f"float per step ({sum(g[-1] for g in conv_pe.STEP_F_GROUPS)} "
+        f"calls, cold L2): "
+        f"planned {tot['planned']:.3f} ms, best candidates "
+        f"{tot['best']:.3f} ms, cuBLAS {tot['cublas']:.3f} ms")
+    float_host(torch, np, conv_pe, rng)
+    return good
+
+
+def float_host(torch, np, conv_pe, rng) -> None:
+    """The float wrapper's host us a call and its parts, at [64, 64] x
+    [64, 64] (the device finishes first, so the loops run at the host's
+    pace): the wrapper on the tensor-core and the FFMA route, the bare
+    ctypes calls (the tensor-core one encodes two tensor maps), and the
+    Python parts."""
+    from repro_torch.kernels import _build
+    a, b, bv = f_operands(torch, np, 64, 64, 64, False, True, True, rng)
+    a32, b32 = a.float(), b.float()
+    lib = _build.library("conv_pe_f", conv_pe._bind_f)
+    out = torch.empty((64, 64), dtype=torch.bfloat16, device="cuda")
+    stream = _build.stream_ptr(a)
+    parts = {
+        "wrapper, tensor cores": lambda: conv_pe._gemm_f(
+            a, b, bv, "none", torch.bfloat16),
+        "wrapper, FFMA (f32)": lambda: conv_pe._gemm_f(
+            a32, b32, bv, "none", torch.float32),
+        "ctypes conv_pe_f_tc": lambda: lib.conv_pe_f_tc(
+            a.data_ptr(), b.data_ptr(), bv.data_ptr(), out.data_ptr(), None,
+            64, 64, 64, 0, 1, 1, 1, 0, 1, stream),
+        "ctypes conv_pe_f_gemm": lambda: lib.conv_pe_f_gemm(
+            a.data_ptr(), b.data_ptr(), bv.data_ptr(), out.data_ptr(), 64,
+            64, 64, 0, 1, 1, stream),
+        "plan_of": lambda: conv_pe.plan_of(a, b),
+        "torch.empty out": lambda: torch.empty(
+            (64, 64), dtype=torch.bfloat16, device=a.device),
+        "scratch": lambda: conv_pe._scratch(a, 64 * 64, stream),
+        "stream_ptr": lambda: _build.stream_ptr(a),
+        "bias check": lambda: _build.require(bv, "bias", torch.float32,
+                                             (64,)),
+    }
+    log("float host us a call: " + ", ".join(
+        f"{k} {host_us(torch, f, 2000):.2f}" for k, f in parts.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", action="store_true",
                     help="compare served images/s across variants")
     ap.add_argument("--src", help="import repro_torch from this directory")
+    ap.add_argument("--float", action="store_true", dest="float_",
+                    help="the float GEMM's candidate plans against cuBLAS")
+    ap.add_argument("--host", action="store_true",
+                    help="with --float: only the wrapper's host cost")
+    ap.add_argument("--fixed", action="store_true",
+                    help="with --float: only the short products' fixed "
+                    "costs")
     args = ap.parse_args()
     # repro_torch is imported before chip_smoke, which puts this tree's
     # src/ first on the path: a --src tree's package is the one that stays
@@ -378,10 +667,22 @@ def main() -> int:
     _build.build_all()
     if args.serve:
         good = serve(torch, np, smoke, conv_pe)
+    elif args.float_:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
+        good = True
+        if args.host:
+            float_host(torch, np, conv_pe, np.random.default_rng(2))
+        elif args.fixed:
+            float_fixed(torch, np, smoke, conv_pe)
+        else:
+            good = float_plans(torch, np, smoke, conv_pe)
+            float_fixed(torch, np, smoke, conv_pe)
     else:
         good = plans(torch, np, smoke, conv_pe)
         host(torch, np, conv_pe)
-    log("all bitwise" if good else "SOME RESULT DIFFERS")
+    log("all within their bars" if good else "SOME RESULT DIFFERS")
     return 0 if good else 1
 
 

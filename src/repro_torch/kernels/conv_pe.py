@@ -19,16 +19,28 @@ PyTorch version:
     (:429): the float GEMM with f32 accumulation, bias and act, which
     runs every float projection of the training path (ops.linear_f on
     backend="cuda"), forward and backward, through the autograd Function
-    `MatmulF`.  Kernel in csrc/conv_pe_f.cu.
+    `MatmulF`.  Kernels in csrc/conv_pe_f.cu: bf16 wgmma tiles fed by TMA,
+    and an FFMA kernel for f32 operands.  `plan_f(M, N, K, ...)` picks per
+    product the route (the tensor cores for bf16 operands TMA can describe,
+    FFMA otherwise), the K split of the 128 x 128 tiles (`tc_splits`: as
+    many slices as the SMs the tiles leave idle, read off
+    scripts/conv_pe_probe.py --float) and whether a reduction pass runs
+    the epilogue (`pass_`).  Each
+    operand is taken contiguous or as the transposed view of a contiguous
+    matrix (`transposed`), so the backward's b^T and a^T are never copied
+    on the tensor-core route.  A split K, and the acts with a division or a
+    libm call (silu, gelu, hardswish), leave f32 sums per slice in the
+    stream's scratch, and a reduction adds them in slice order and runs the
+    epilogue: no atomics, the same bits every run.
 
-Bound on the H100 and the design's answer: see the note at the top of
-csrc/conv_pe.cu.  `plan(M, N, K)` picks, per product, the kernel of
-`matmul_int8_fused`: split-K weight streaming at M <= 4 with >= 16 MiB of
-weights (bound by reading them once), int8 tensor-core tiles otherwise (128
-x 128 / 64 / 32, split along K where the tiles do not fill the SMs), with
-copy widths that never read past a row, and the epilogue fused or as a pass
-of its own.  The TPU kernels' block sizes and 128-padding are not carried
-over.
+Bound on the H100 and the design's answer: see the notes at the top of
+csrc/conv_pe.cu and csrc/conv_pe_f.cu.  `plan(M, N, K)` picks, per
+product, the kernel of `matmul_int8_fused`: split-K weight streaming at M
+<= 4 with >= 16 MiB of weights (bound by reading them once), int8
+tensor-core tiles otherwise (128 x 128 / 64 / 32, split along K where the
+tiles do not fill the SMs), with copy widths that never read past a row,
+and the epilogue fused or as a pass of its own.  The TPU kernels' block
+sizes and 128-padding are not carried over.
 
 On a CUDA tensor each wrapper checks its operands and launches its kernel
 or raises; on CPU tensors it runs the plain version (the CPU tests).
@@ -60,6 +72,9 @@ def _bind_f(lib: ctypes.CDLL) -> None:
     lib.conv_pe_f_gemm.argtypes = [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I,
                                    _V]
     lib.conv_pe_f_gemm.restype = _I
+    lib.conv_pe_f_tc.argtypes = [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _V]
+    lib.conv_pe_f_tc.restype = _I
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -172,11 +187,12 @@ def plan(m: int, n: int, k: int, a_align: int, b_align: int) -> Plan:
     return mma_plan(m, n, k, wa, wb)
 
 
-_SCRATCH: dict = {}       # (device, stream) -> int32 scratch of unfused plans
+_SCRATCH: dict = {}       # (device, stream) -> scratch of 4-byte values
 
 
 def _scratch(t: torch.Tensor, n: int, stream: int) -> torch.Tensor:
-    """An int32 scratch of at least n values for a product on `stream`: one
+    """An int32 scratch of at least n values for a product on `stream` (the
+    int8 GEMM's int32 sums, the float GEMM's f32 K-slice partials): one
     buffer per device and stream, grown and never shrunk (launches on one
     stream run in order, so a product's scratch is free once the next one
     starts; the largest on the served paths is ~19 MB).  It saves the
@@ -488,6 +504,108 @@ def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 F_DTYPES = (torch.float32, torch.bfloat16)
+TC_BM, TC_BN, TC_BK = 128, 128, 64   # tensor-core tile, K a stage (bf16)
+# the split rule, read off scripts/conv_pe_probe.py --float on the H100:
+# K is split only where the tiles leave SMs idle, into as many slices as
+# the idle SMs take, each slice at least TC_MIN_STEPS 64-deep steps
+TC_MIN_STEPS = 4
+TC_MAX_SPLITS = 32
+# the acts the tiles apply in their own epilogue (conv_pe_f.cu act_in_tc:
+# no division, no libm call); the others run in the reduction pass
+TC_TILE_ACTS = ("none", "relu", "relu6", "relu2")
+# the float products of a full-width qwen2-1.5b training step at batch 8 x
+# seq 128, the shapes the split rule is read from: (group, M, N, K, A read
+# M-major (a^T), B read N-major (not b^T), bias, act, bf16 output, calls a
+# step).  scripts/conv_pe_probe.py --float times them; chip_smoke.py
+# captures the same products from the step itself.
+STEP_F_GROUPS = (
+    ("fwd K/V", 1024, 256, 1536, False, True, True, "none", True, 56),
+    ("fwd Q", 1024, 1536, 1536, False, True, True, "none", True, 28),
+    ("fwd O", 1024, 1536, 1536, False, True, False, "none", True, 28),
+    ("fwd up", 1024, 8960, 1536, False, True, False, "none", True, 28),
+    ("fwd gate", 1024, 8960, 1536, False, True, False, "silu", True, 28),
+    ("fwd down", 1024, 1536, 8960, False, True, False, "none", True, 28),
+    ("gate recompute", 1024, 8960, 1536, False, True, False, "none", False,
+     28),
+    ("da K/V", 1024, 1536, 256, False, False, False, "none", True, 56),
+    ("da Q/O", 1024, 1536, 1536, False, False, False, "none", True, 56),
+    ("da gate/up", 1024, 1536, 8960, False, False, False, "none", True, 56),
+    ("da down", 1024, 8960, 1536, False, False, False, "none", True, 28),
+    ("db K/V", 1536, 256, 1024, True, True, False, "none", True, 56),
+    ("db Q/O", 1536, 1536, 1024, True, True, False, "none", True, 56),
+    ("db gate/up", 1536, 8960, 1024, True, True, False, "none", True, 56),
+    ("db down", 8960, 1536, 1024, True, True, False, "none", True, 28),
+)
+
+
+class PlanF(NamedTuple):
+    """One float product's launch: `route` "wgmma" (bf16 tensor-core tiles
+    of 128 x 128 fed by TMA) or "ffma" (the CUDA-core kernel); K in
+    `splits` slices of `kps` 64-deep steps (the last may be short, none is
+    empty); `a_mn` / `b_mn`: the operand is read M- / N-major; `pass_`: the
+    tiles leave f32 sums per slice in the scratch and a reduction pass adds
+    them and runs bias, act and cast (a split K, or an act not in
+    TC_TILE_ACTS), else the tiles run the epilogue themselves."""
+    route: str
+    splits: int
+    kps: int
+    a_mn: bool
+    b_mn: bool
+    pass_: bool
+
+
+def tc_splits(m: int, n: int, nk: int) -> int:
+    """The split rule: as many K slices as the idle SMs take (tiles x
+    splits up to SMS), each at least TC_MIN_STEPS steps; 1 where the tiles
+    fill more than half the SMs."""
+    tiles = math.ceil(m / TC_BM) * math.ceil(n / TC_BN)
+    return max(1, min(SMS // tiles, nk // TC_MIN_STEPS, TC_MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_f(m: int, n: int, k: int, bf16: bool, a_mn: bool, b_mn: bool,
+           aligned: bool, act: str = "none") -> PlanF:
+    """The launch of one M x K x N float product (pure, cached: the training
+    step plans 616 products).  bf16 operands go to the tensor cores when TMA
+    can describe them: both bases 16-byte aligned (`aligned`) and each
+    operand's row stride (A: K, or M when read M-major; B: N, or K when read
+    K-major) a multiple of 16 bytes; and N a multiple of 8, for the
+    epilogue's 8- and 16-byte stores.  K is split by `tc_splits`.  f32
+    operands, and bf16 ones the tiles cannot take, go to the FFMA kernel,
+    which reads contiguous row-major operands (the wrapper copies a
+    transposed view first)."""
+    if min(m, n, k) < 1:
+        raise ValueError(f"conv_pe_f: empty product M={m} N={n} K={k}")
+    rows = ((m if a_mn else k), (n if b_mn else k), n)
+    if not (bf16 and aligned and all(r % 8 == 0 for r in rows)):
+        return PlanF("ffma", 1, 0, False, True, False)
+    nk = math.ceil(k / TC_BK)
+    kps = math.ceil(nk / tc_splits(m, n, nk))
+    splits = math.ceil(nk / kps)            # no empty slice
+    return PlanF("wgmma", splits, kps, a_mn, b_mn,
+                 splits > 1 or act not in TC_TILE_ACTS)
+
+
+def plan_of(a: torch.Tensor, b: torch.Tensor, act: str = "none") -> PlanF:
+    """plan_f of the product act(a @ b) as the wrapper launches it: from
+    the operands' type, layouts (`transposed`) and base alignment."""
+    m, k = a.shape
+    return plan_f(m, b.shape[1], k, a.dtype == torch.bfloat16,
+                  transposed(a, "a"), not transposed(b, "b"),
+                  byte_align(a) == 16 and byte_align(b) == 16, act)
+
+
+def transposed(t: torch.Tensor, name: str) -> bool:
+    """A float GEMM operand's layout: False for a contiguous (row-major)
+    matrix, True for the transposed view of one (t.t() contiguous; a
+    matrix that is both, with a dimension of 1, counts as row-major);
+    ValueError for any other strides."""
+    if t.is_contiguous():
+        return False
+    if t.t().is_contiguous():
+        return True
+    raise ValueError(f"{name}: expected a contiguous matrix or the "
+                     f"transposed view of one, got strides {t.stride()}")
 
 
 def matmul_f_fused_plain(a: torch.Tensor, b: torch.Tensor,
@@ -501,8 +619,10 @@ def matmul_f_fused_plain(a: torch.Tensor, b: torch.Tensor,
 
 def _gemm_f(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
             act: str, out_dtype) -> torch.Tensor:
-    """One product: the kernel on CUDA tensors (counted as conv_pe_f), the
-    plain version on CPU tensors."""
+    """One product: the kernel `plan_of` picks on CUDA tensors (counted once
+    as conv_pe_f, whatever it launches), the plain version on CPU tensors.
+    a [M, K] and b [K, N] are each contiguous or the transposed view of a
+    contiguous matrix (`transposed`)."""
     if not a.is_cuda:
         return matmul_f_fused_plain(a, b, bias, act, out_dtype)
     if a.dtype not in F_DTYPES or out_dtype not in F_DTYPES:
@@ -516,15 +636,31 @@ def _gemm_f(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
     if min(m, n, k) < 1:
         raise ValueError(f"conv_pe_f: empty product {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
-    require(a, "a", a.dtype)
-    require(b, "b", a.dtype, (k, n))
+    if not b.is_cuda or b.dtype != a.dtype or b.shape[0] != k:
+        raise ValueError(f"b: expected {a.dtype} ({k}, {n}) on the card, "
+                         f"got {b.dtype}{tuple(b.shape)} on {b.device}")
     if bias is not None:
         require(bias, "bias", torch.float32, (n,))
+    p = plan_of(a, b, act)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _build.library("conv_pe_f", _bind_f).conv_pe_f_gemm(
-        a.data_ptr(), b.data_ptr(), ptr(bias), out.data_ptr(), m, n, k,
-        _build.f_act_code(act), int(a.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
+    lib = _build.library("conv_pe_f", _bind_f)
+    stream = _build.stream_ptr(a)
+    if p.route == "ffma":
+        # the copies of transposed views stay referenced until the launch
+        # is enqueued: a freed copy's block could go to the other's copy
+        a_c, b_c = a.contiguous(), b.contiguous()
+        err = lib.conv_pe_f_gemm(
+            a_c.data_ptr(), b_c.data_ptr(), ptr(bias), out.data_ptr(), m, n,
+            k, _build.f_act_code(act), int(a.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), stream)
+    else:
+        # f32 sums per K slice for the reduction pass, if the plan has one
+        part = _scratch(a, p.splits * m * n, stream) if p.pass_ else None
+        err = lib.conv_pe_f_tc(
+            a.data_ptr(), b.data_ptr(), ptr(bias), out.data_ptr(), ptr(part),
+            m, n, k, int(p.a_mn), int(p.b_mn), p.splits, p.kps,
+            _build.f_act_code(act),
+            int(out_dtype == torch.bfloat16), stream)
     _build.check(err, "conv_pe_f")
     _build.count("conv_pe_f")
     return out
@@ -539,8 +675,9 @@ class MatmulF(torch.autograd.Function):
         in f32 (one more launch; the saved tensors stay the forward's
         operands), and dz = dy * act'(z) by torch's own derivative of
         ref.act_fn, in f32, cast to a's dtype;
-      * da = dz @ b^T and db = a^T @ dz, each one launch on contiguous
-        transposed copies, in a's / b's dtype;
+      * da = dz @ b^T and db = a^T @ dz, each one launch on b.t() and
+        a.t() as views (the tensor-core route reads them in place; the
+        FFMA route copies them), in a's / b's dtype;
       * dbias = the f32 column sum of dz.
     """
 
@@ -564,9 +701,9 @@ class MatmulF(torch.autograd.Function):
         dz = dz32.to(a.dtype).contiguous()
         da = db = dbias = None
         if ctx.needs_input_grad[0]:
-            da = _gemm_f(dz, b.t().contiguous(), None, "none", a.dtype)
+            da = _gemm_f(dz, b.t(), None, "none", a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _gemm_f(a.t().contiguous(), dz, None, "none", b.dtype)
+            db = _gemm_f(a.t(), dz, None, "none", b.dtype)
         if bias is not None and ctx.needs_input_grad[2]:
             dbias = dz32.sum(dim=0).to(bias.dtype)
         return da, db, dbias, None, None
@@ -575,8 +712,9 @@ class MatmulF(torch.autograd.Function):
 def matmul_f_fused(a: torch.Tensor, b: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, act: str = "none",
                    out_dtype=torch.float32) -> torch.Tensor:
-    """Fused float GEMM.  a [M, K] and b [K, N] both f32 or both bf16,
-    contiguous; bias f32 [N] or None; act any of ref.act_fn's; out_dtype
+    """Fused float GEMM.  a [M, K] and b [K, N] both f32 or both bf16, each
+    contiguous or the transposed view of a contiguous matrix; bias f32 [N]
+    or None; act any of ref.act_fn's; out_dtype
     f32 or bf16.  Returns act(a @ b + bias) in out_dtype, differentiable
     (MatmulF).  On CUDA tensors every product launches the kernel (one
     forward; a recompute when act != "none" and two products in the

@@ -11,8 +11,16 @@ counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes);
 every output must equal the plain version bit for bit, except the flash
 attention's and the float GEMM's (K = 8960 among its shapes, f32 and bf16,
 every act, and its gradient), which agree with their plain versions to
-f32 rounding (the float GEMM at bf16 output to one bf16 ulp).
+f32 rounding (the float GEMM at bf16 output to one bf16 ulp).  The float
+GEMM's cases reach both routes: the bf16 tensor-core tiles (every operand
+layout, split and not, the act in the tiles or in the reduction pass,
+ragged M, N and K) and the FFMA kernel (f32, and bf16 rows off 16
+bytes).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -434,12 +442,15 @@ def _f_close(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(37, 53, 29), (130, 8960, 67)])
 def test_conv_pe_f(dev, m, k, n, dtype, act):
+    """The FFMA route: f32 operands, and bf16 rows off 16 bytes."""
     rng = np.random.default_rng(m + k + n)
     a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
         dev, dtype)
     b = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) /
                          np.sqrt(k)).to(dev, dtype)
     bias = _f(rng, (n,), dev, -1.0, 1.0)
+    assert conv_pe.plan_f(m, n, k, dtype == torch.bfloat16, False, True,
+                          True).route == "ffma"
     before = _build.COUNTS.get("conv_pe_f", 0)
     got = conv_pe.matmul_f_fused(a, b, bias, act, dtype)
     assert _build.COUNTS["conv_pe_f"] == before + 1
@@ -481,8 +492,188 @@ def test_conv_pe_f_rejects_unsupported(dev):
     before = dict(_build.COUNTS)
     a = torch.ones(4, 8, device=dev)
     for bad in (dict(a=a.half(), b=torch.ones(8, 4, device=dev).half()),
-                dict(a=a, b=torch.ones(8, 4, device=dev).t().contiguous().t()),
+                dict(a=a, b=torch.ones(8, 8, device=dev)[:, ::2]),
+                dict(a=a.bfloat16(),
+                     b=torch.ones(8, 8, device=dev).bfloat16()[:, ::2]),
                 dict(a=a, b=torch.ones(8, 4, device=dev), act="tanh")):
         with pytest.raises(ValueError):
             conv_pe.matmul_f_fused(**bad)
     assert _build.COUNTS == before
+
+
+def _bf16_operands(rng, dev, m, k, n, a_t, b_t):
+    """bf16 a [M, K] (the transposed view of a stored [K, M] when a_t) and
+    b [K, N] (the transposed view of a stored [N, K] when b_t)."""
+    a = torch.from_numpy(rng.normal(size=(k, m) if a_t else (m, k)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    b = torch.from_numpy((rng.normal(size=(n, k) if b_t else (k, n)) /
+                          np.sqrt(k)).astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    return (a.t() if a_t else a), (b.t() if b_t else b)
+
+
+# forced K splits of the tensor-core tiles, and the act: relu2 runs in the
+# tiles' epilogue, gelu in the reduction pass; K = 328 is six 64-deep
+# steps, the last short
+TC_PLANS = [(1, "relu2"), (1, "gelu"), (2, "relu2"), (3, "gelu")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits,act", TC_PLANS)
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (False, True),
+                                     (True, False), (True, True)])
+def test_conv_pe_f_tc_layouts(dev, monkeypatch, a_t, b_t, splits, act,
+                              dtype):
+    """The tensor-core route at every operand layout (the forward's a x b,
+    the backward's dz x b^T and a^T x dz, and a^T x b^T), split and not,
+    the act in the tiles or in the pass, at ragged M / N / K (M = 456: 4
+    row tiles, the last ragged, so both consumer warpgroups take two units
+    in turn; N = 264: three column tiles, the last ragged), with bias: one
+    launch a product, within the float bar of the plain version."""
+    m, k, n = 456, 328, 264
+    rng = np.random.default_rng(splits + 2 * a_t + b_t)
+    a, b = _bf16_operands(rng, dev, m, k, n, a_t, b_t)
+    assert a.is_contiguous() != a_t and b.is_contiguous() != b_t
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    kps = -(-6 // splits)
+    plan = conv_pe.PlanF("wgmma", splits, kps, a_t, not b_t,
+                         splits > 1 or act not in conv_pe.TC_TILE_ACTS)
+    assert plan.route == conv_pe.plan_f(m, n, k, True, a_t, not b_t,
+                                        True).route
+    monkeypatch.setattr(conv_pe, "plan_f", lambda *args: plan)
+    before = _build.COUNTS.get("conv_pe_f", 0)
+    got = conv_pe.matmul_f_fused(a, b, bias, act, dtype)
+    assert _build.COUNTS["conv_pe_f"] == before + 1
+    _f_close(got, conv_pe.matmul_f_fused_plain(a, b, bias, act, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_pe_f_views(dev, dtype):
+    """The FFMA route on two transposed views (a^T x b^T; f32, and bf16
+    whose rows TMA cannot describe): both are copied row-major, and each
+    copy is still held when the kernel reads it (a copy freed first could
+    hand its block to the other's)."""
+    m, k, n = 37, 53, 29
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.normal(size=(k, m)).astype(np.float32)).to(
+        dev, dtype).t()
+    b = torch.from_numpy((rng.normal(size=(n, k)) / np.sqrt(k)).astype(
+        np.float32)).to(dev, dtype).t()
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    assert conv_pe.plan_of(a, b).route == "ffma"
+    for act in ("none", "silu"):
+        got = conv_pe.matmul_f_fused(a, b, bias, act, dtype)
+        _f_close(got, conv_pe.matmul_f_fused_plain(a, b, bias, act, dtype))
+
+
+# a process whose autograd device thread first meets CUDA in MatmulF's
+# tensor-core recompute
+FRESH_BACKWARD = """
+import torch
+from repro_torch.kernels import conv_pe
+g = torch.Generator(device="cuda").manual_seed(0)
+a, b = (torch.randn(s, device="cuda", generator=g).bfloat16()
+        .requires_grad_(True) for s in ((128, 256), (256, 128)))
+y = conv_pe.matmul_f_fused(a, b, None, "silu", torch.bfloat16)
+y.backward(torch.ones_like(y))
+assert bool(torch.isfinite(a.grad).all() & torch.isfinite(b.grad).all())
+"""
+
+
+def test_conv_pe_f_tc_backward_on_a_fresh_autograd_thread(dev):
+    """autograd runs a backward on a thread of its own, where no CUDA call
+    may have bound the device's context yet: the tensor-core products there
+    encode their tensor maps all the same (in a fresh process, so that
+    thread's first CUDA work is the recompute)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run([sys.executable, "-c", FRESH_BACKWARD], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_conv_pe_f_tc_refuses_plan_without_pass(dev, monkeypatch):
+    """A tensor-core plan whose split K or act needs the reduction pass but
+    that has none, or whose N is off 8, is refused at launch, not run."""
+    rng = np.random.default_rng(12)
+    a, b = _bf16_operands(rng, dev, 128, 256, 128, False, False)
+    before = dict(_build.COUNTS)
+    for plan, act in ((conv_pe.PlanF("wgmma", 2, 2, False, True, False),
+                       "none"),
+                      (conv_pe.PlanF("wgmma", 1, 4, False, True, False),
+                       "silu"),
+                      (conv_pe.PlanF("wgmma", 1, 4, False, False, True),
+                       "none")):
+        monkeypatch.setattr(conv_pe, "plan_f", lambda *args, _p=plan: _p)
+        # the last: b^T of a stored [124, 256], rows TMA can read, N off 8
+        with pytest.raises(RuntimeError):
+            conv_pe.matmul_f_fused(a, b if plan.b_mn
+                                   else b.t()[:124].contiguous().t(),
+                                   None, act, torch.bfloat16)
+    assert _build.COUNTS == before
+
+
+@pytest.mark.parametrize("act", sorted(_build.F_ACT_CODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(130, 8960, 72), (1000, 512, 1496)])
+def test_conv_pe_f_tc_acts(dev, m, k, n, dtype, act):
+    """The planned tensor-core route (the first shape split along K, the
+    second unsplit) with every act, with and without bias, at both output
+    types; K = 8960 is the step's long K."""
+    p = conv_pe.plan_f(m, n, k, True, False, True, True, act)
+    assert p.route == "wgmma" and (p.splits > 1) == (k == 8960)
+    assert p.pass_ == (p.splits > 1 or act not in conv_pe.TC_TILE_ACTS)
+    rng = np.random.default_rng(m + k + n)
+    a, b = _bf16_operands(rng, dev, m, k, n, False, False)
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    for bv in (bias, None):
+        got = conv_pe.matmul_f_fused(a, b, bv, act, dtype)
+        _f_close(got, conv_pe.matmul_f_fused_plain(a, b, bv, act, dtype))
+
+
+def test_conv_pe_f_tc_split_deterministic(dev):
+    """A split product (f32 partials per K slice, added in slice order by
+    the reduction) gives the same bits on every call."""
+    m, k, n = 1024, 8960, 256
+    assert conv_pe.plan_f(m, n, k, True, False, True, True).splits > 1
+    rng = np.random.default_rng(9)
+    a, b = _bf16_operands(rng, dev, m, k, n, False, False)
+    first = conv_pe.matmul_f_fused(a, b, None, "none", torch.float32)
+    for _ in range(3):
+        assert torch.equal(conv_pe.matmul_f_fused(a, b, None, "none",
+                                                  torch.float32), first)
+
+
+def test_conv_pe_f_tc_grads_views(dev, monkeypatch):
+    """MatmulF on aligned bf16 operands: every product takes the tensor-core
+    route, the backward hands the wrapper b^T and a^T as views of the saved
+    operands (no transposed copy), and the gradients agree with autograd
+    through the plain version as test_conv_pe_f_grads bounds them."""
+    rng = np.random.default_rng(6)
+    m, k, n = 72, 200, 88
+    a, b, dy = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        dev, torch.bfloat16) for s in ((m, k), (k, n), (m, n)))
+    bias = _f(rng, (n,), dev, -1.0, 1.0)
+    seen, orig = [], conv_pe._gemm_f
+
+    def rec(x, y, *rest):
+        seen.append((x, y))
+        return orig(x, y, *rest)
+    monkeypatch.setattr(conv_pe, "_gemm_f", rec)
+    ts = [t.clone().requires_grad_(True) for t in (a, b, bias)]
+    before = _build.COUNTS.get("conv_pe_f", 0)
+    y = conv_pe.matmul_f_fused(*ts, "silu", torch.bfloat16)
+    y.backward(dy)
+    assert _build.COUNTS["conv_pe_f"] - before == 4
+    (fa, fb), _, (da_x, da_w), (db_a, db_dz) = seen
+    assert da_w.data_ptr() == fb.data_ptr() and not da_w.is_contiguous()
+    assert db_a.data_ptr() == fa.data_ptr() and not db_a.is_contiguous()
+    for x, w in seen:
+        assert conv_pe.plan_of(x, w).route == "wgmma"
+    want = [t.clone().requires_grad_(True) for t in (a, b, bias)]
+    conv_pe.matmul_f_fused_plain(*want, "silu", torch.bfloat16).backward(dy)
+    for g, w in zip((t.grad for t in ts), (t.grad for t in want)):
+        assert (g.double() - w.double()).abs().max() <= 2 ** -7 * w.double(
+        ).abs().max()

@@ -413,6 +413,72 @@ def test_conv_pe_scratch_grows_per_stream():
 
 
 # ---------------------------------------------------------------------------
+# The float GEMM's planner and layout classifier (pure Python)
+# ---------------------------------------------------------------------------
+
+# the K splits the card run takes at the 15 float GEMM shape groups of one
+# full-width qwen2-1.5b training step (conv_pe.STEP_F_GROUPS)
+F_STEP_SPLITS = {"fwd K/V": 6, "db K/V": 4}
+F_GROUPS = {g[0]: g[1:] for g in conv_pe.STEP_F_GROUPS}
+
+
+@pytest.mark.parametrize("group", sorted(F_GROUPS))
+def test_conv_pe_plan_f_step_shapes(group):
+    """plan_f at the training step's shapes: the tensor-core route, each
+    operand in the layout the step hands it, the K split the card run
+    takes (as many slices as the idle SMs take, none shorter than
+    TC_MIN_STEPS), the K slices covering the 64-deep steps exactly once,
+    and the reduction pass exactly where a split or the act needs it."""
+    m, n, k, a_mn, b_mn, _, act, _, _ = F_GROUPS[group]
+    p = conv_pe.plan_f(m, n, k, True, a_mn, b_mn, True, act)
+    assert p.route == "wgmma" and (p.a_mn, p.b_mn) == (a_mn, b_mn)
+    assert p.splits == F_STEP_SPLITS.get(group, 1)
+    nk = -(-k // conv_pe.TC_BK)
+    assert (_cover(nk, p.kps, p.splits) == 1).all()
+    tiles = -(-m // conv_pe.TC_BM) * -(-n // conv_pe.TC_BN)
+    assert tiles * p.splits <= max(tiles, conv_pe.SMS)
+    assert p.splits == 1 or p.kps >= conv_pe.TC_MIN_STEPS
+    assert p.pass_ == (p.splits > 1 or act == "silu")
+
+
+@pytest.mark.parametrize("m,n,k,bf16,a_mn,b_mn,aligned", [
+    (1024, 1536, 1536, False, False, True, True),   # f32 operands
+    (37, 29, 53, True, False, True, True),          # K, N rows off 16 B
+    (130, 67, 8960, True, False, True, True),       # N rows off 16 B
+    (70, 88, 200, True, True, True, True),          # a^T rows (M) off 16 B
+    (72, 88, 201, True, False, False, True),        # b^T rows (K) off 16 B
+    (72, 84, 200, True, False, False, True),        # N off 8 (the stores)
+    (1024, 1536, 1536, True, False, True, False)])  # a base off 16 B
+def test_conv_pe_plan_f_ffma_route(m, n, k, bf16, a_mn, b_mn, aligned):
+    """f32 products, and bf16 ones the tensor-core tiles cannot take (rows
+    TMA cannot describe, N off 8), take the FFMA kernel (row-major
+    operands); the same shapes aligned in bf16 take the tensor cores."""
+    p = conv_pe.plan_f(m, n, k, bf16, a_mn, b_mn, aligned)
+    assert p.route == "ffma" and p.splits == 1 and not p.pass_
+    assert (p.a_mn, p.b_mn) == (False, True)
+    if bf16 and aligned and m % 8 == 0:
+        q = conv_pe.plan_f(m, -(-n // 8) * 8, -(-k // 8) * 8, True, a_mn,
+                           b_mn, True)
+        assert q.route == "wgmma"
+
+
+def test_conv_pe_f_layout_classifier():
+    """transposed(): a contiguous matrix is row-major, the transposed view
+    of one is read transposed (a matrix that is both, with a dimension of
+    1, counts as row-major); any other strides raise."""
+    x = torch.zeros(6, 4)
+    assert conv_pe.transposed(x, "x") is False
+    assert conv_pe.transposed(x.t(), "x") is True
+    assert conv_pe.transposed(torch.zeros(1, 5), "x") is False
+    assert conv_pe.transposed(torch.zeros(5, 1).t(), "x") is False
+    assert conv_pe.transposed(torch.zeros(5, 1), "x") is False
+    for bad in (x[:, ::2], x[::2], x.t()[:, ::2], x.t()[::2],
+                torch.zeros(4, 6, 2)[:, :, 0], torch.zeros(8, 8)[:6, :4]):
+        with pytest.raises(ValueError, match="transposed view"):
+            conv_pe.transposed(bad, "x")
+
+
+# ---------------------------------------------------------------------------
 # Launch counts: a wrapper counts only where it launches its kernel
 # ---------------------------------------------------------------------------
 

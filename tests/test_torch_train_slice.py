@@ -135,6 +135,27 @@ def test_plain_matches_pallas_kernel(dtype, bias, act):
     assert _rel(got, want) <= 1e-5
 
 
+def test_plain_on_transposed_views_matches_pallas_kernel():
+    """The backward's operands as MatmulF hands them to the kernel: a^T as
+    the transposed view of a stored [K, M] and b^T as the view of a stored
+    [N, K], bf16, through ref.matmul_f_fused, against the reference's
+    Pallas `_kernel_f` on the materialised transposes in interpret mode at
+    128^3: within 1e-5 of max|out|."""
+    rng = np.random.default_rng(4)
+    a_st = rng.normal(size=(128, 128)).astype(np.float32)   # [K, M]
+    b_st = rng.normal(size=(128, 128)).astype(np.float32)   # [N, K]
+    want = j_conv_pe.matmul_f_fused(
+        jnp.asarray(a_st.T).astype(jnp.bfloat16),
+        jnp.asarray(b_st.T).astype(jnp.bfloat16), None, "none", bm=128,
+        bn=128, bk=128, interpret=True)
+    a = torch.from_numpy(a_st).to(torch.bfloat16).t()
+    b = torch.from_numpy(b_st).to(torch.bfloat16).t()
+    assert not a.is_contiguous() and not b.is_contiguous()
+    got = ref.matmul_f_fused(a, b, None, "none")
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-5
+
+
 def _grads(fn, a, b, bias, act, out_dtype, dy):
     a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
     bias = bias.clone().requires_grad_(True)
@@ -161,6 +182,25 @@ def test_matmul_f_grads_match_autograd(act):
     assert _build.COUNTS == before
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and _rel(g, w) <= 1e-6
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_matmul_f_grads_through_views(act):
+    """a and b handed in as transposed views (a^T of a stored [K, M], b^T of
+    a stored [N, K], as the backward passes them on), f32, ragged: the
+    Function's forward and gradients against autograd through the plain
+    version on contiguous copies, within 1e-6 of max|grad|."""
+    rng = np.random.default_rng(13)
+    m, k, n = 37, 53, 29
+    a = torch.from_numpy(rng.normal(size=(k, m)).astype(np.float32)).t()
+    b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).t()
+    bias, dy = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                for s in ((n,), (m, n)))
+    got = _grads(conv_pe.matmul_f_fused, a, b, bias, act, torch.float32, dy)
+    want = _grads(conv_pe.matmul_f_fused_plain, a.contiguous(),
+                  b.contiguous(), bias, act, torch.float32, dy)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) <= 1e-6
 
 
 def test_matmul_f_grads_bf16():
