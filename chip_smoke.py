@@ -38,7 +38,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      kernel phase;
   7. a zoo sweep: every CNN_ZOO model at 64 px, batch 2, fused and
      unfused on one calibration, on the CUDA backend against
-     backend="ref" on the card and unfused against fused, bit for bit;
+     backend="ref" on the card and unfused against fused, bit for bit,
+     and each program's Low-Channel stem call against its plain version;
   8. qwen2-1.5b at full width (28 layers, d 1536, 12 / 2 heads of 128,
      d_ff 8960, vocab 151936), seeded weights, calibrated on one [2, 64]
      token batch, served by ServeEngine(quant="w4a8", backend="cuda",
@@ -47,9 +48,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      (plain and residual), the paged gather and the flash attention at the
      shapes of one prefill and one decode step (timed per decode step, and
      per prefill), then 8 requests of 16-64 prompt tokens and 32 new tokens
-     each with the counters zeroed around them (56 / 56 / 56 launches per
-     decode step; 56 / 56 / 0 and 28 flash_attention per prefill), the same
-     trace 10 times more for steady tokens/s and latency, and one profiled
+     each with the counters zeroed around them (56 / 56 / 28 launches per
+     decode step, the paged gather one a layer for k and v; 56 / 56 / 0
+     and 28 flash_attention per prefill), the same trace 10 times more
+     for steady tokens/s and latency, and one profiled
      prefill and decode step; the served ids must equal the backend="ref"
      engine's and the dense-KV engine's; then the same trace under
      quant="w8a8" (int8 Conv PE), with its int8 GEMMs, their plans logged,
@@ -64,9 +66,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      its plain version and timed at one gemma2 prefill and at a 2048-token
      shape; the int4 Conv PE, the MISC add and the paged gather held
      bitwise at gemma2's shapes; the trace with the counters zeroed around
-     it (4 int4 GEMMs and 2 misc_add on every layer, paged_gather and
-     flash_attention on the 13 global layers only), 3 steady traces, one
-     profiled prefill and decode step; ids
+     it (4 int4 GEMMs and 2 misc_add on every layer, paged_gather (k and v
+     in one launch) and flash_attention on the 13 global layers only), 3
+     steady traces, one profiled prefill and decode step; ids
      equal to the backend="ref" engine's and the dense-KV engine's, with
      the int8 codes of the attention-output edge of one prefill compared
      between the backends; then the reduced gemma2 (window 64) served
@@ -183,10 +185,10 @@ LM = dict(arch="qwen2-1.5b", batch=4, max_seq=128, prefill_len=64,
           prompt_lens=(16, 64), w8a8_trials=3)
 LM_PER_LAYER = {
     "w4a8": {"decode": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
-                        "paged_gather": 2},
+                        "paged_gather": 1},
              "prefill": {"conv_pe_w4": 2, "conv_pe_w4_res": 2,
                          "flash_attention": 1}},
-    "w8a8": {"decode": {"conv_pe": 2, "conv_pe_res": 2, "paged_gather": 2},
+    "w8a8": {"decode": {"conv_pe": 2, "conv_pe_res": 2, "paged_gather": 1},
              "prefill": {"conv_pe": 2, "conv_pe_res": 2,
                          "flash_attention": 1}},
 }
@@ -198,7 +200,7 @@ GLOBAL_ONLY = ("paged_gather", "flash_attention")
 # adds stay MISC ops (misc_add) and no GEMM takes a residual epilogue.
 GEMMA = dict(LM, arch="gemma2-2b", trials=3)
 GEMMA_PER_LAYER = {
-    "decode": {"conv_pe_w4": 4, "misc_add": 2, "paged_gather": 2},
+    "decode": {"conv_pe_w4": 4, "misc_add": 2, "paged_gather": 1},
     "prefill": {"conv_pe_w4": 4, "misc_add": 2, "flash_attention": 1}}
 # the ring wrap: the reduced gemma2 (window 64); prompts + new tokens cross it
 RING = dict(batch=2, max_seq=128, prefill_len=48, burst=4, page=16,
@@ -373,6 +375,21 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def call_bytes(torch, name: str, args, kwargs, outs) -> int:
+    """Compulsory bytes of one call: each input read once, each output
+    written once; a paged gather reads only the pages its table names
+    (each once, entries clamped as the kernel clamps them), and the
+    table."""
+    ins = _tensors(args, kwargs)
+    written = sum(_nbytes(o) for o in outs)
+    if name != "paged_gather":
+        return sum(_nbytes(t) for t in ins) + written
+    *pools, tables = ins
+    pages = torch.unique(tables.clamp(0, pools[0].shape[0] - 1)).numel()
+    return (sum(pages * _nbytes(pool[0]) for pool in pools)
+            + _nbytes(tables) + written)
+
+
 def call_ops(name: str, args, kwargs, out):
     """(operations, the card's peak rate for their type) of one call, from
     its operand shapes: int8 multiply-adds x 2 for the engines, f32 flops
@@ -418,7 +435,8 @@ def library_fn(torch, name: str, kern, args, kwargs):
     """One library product call (cuBLAS int8 GEMM through torch._int_mm, or
     cuDNN's convolution on exact float32 copies of the int8 operands) plus
     the same epilogue in torch ops (F.max_pool2d for the stem's max tail),
-    or F.avg_pool2d, on inputs prepared outside the timing; None where no
+    or F.avg_pool2d, or torch.index_select (one a pool for the paged
+    gather's pair), on inputs prepared outside the timing; None where no
     PyTorch call computes the function."""
     import torch.nn.functional as F
     from repro_torch.core.quant import qdq_codes
@@ -441,12 +459,14 @@ def library_fn(torch, name: str, kern, args, kwargs):
             q, k, v, is_causal=p["causal"],
             enable_gqa=q.shape[1] != k.shape[1])
     if name == "paged_gather":
-        pool, tables = p["pool"], p["tables"]
-        n, pg = pool.shape[0], pool.shape[1]
-        flat = (tables.to(torch.int64)[..., None] * pg
-                + torch.arange(pg, device=pool.device)).reshape(-1)
-        pf = pool.reshape((n * pg,) + tuple(pool.shape[2:]))
-        return lambda: torch.index_select(pf, 0, flat)
+        # one index_select a pool, the table's flat row ids made outside
+        pools = (p["k_pool"], p["v_pool"])
+        n, pg = pools[0].shape[0], pools[0].shape[1]
+        flat = (p["tables"].clamp(0, n - 1).to(torch.int64)[..., None] * pg
+                + torch.arange(pg, device=pools[0].device)).reshape(-1)
+        pfs = [pool.reshape((n * pg,) + tuple(pool.shape[2:]))
+               for pool in pools]
+        return lambda: [torch.index_select(pf, 0, flat) for pf in pfs]
     if name == "avgpool2d":
         xf = p["x"].to(torch.float32).permute(0, 3, 1, 2)  # channels_last
         return lambda: F.avg_pool2d(xf, p["window"], p["stride"])
@@ -549,8 +569,8 @@ def _wrappers():
                        conv_pe.matmul_int4_fused_plain),
         "conv_pe_w4_res": (conv_pe.matmul_int4_fused,
                            conv_pe.matmul_int4_fused_plain),
-        "paged_gather": (flash_attn.paged_gather,
-                         flash_attn.paged_gather_plain),
+        "paged_gather": (flash_attn.paged_gather_kv,
+                         flash_attn.paged_gather_kv_plain),
         "flash_attention": (flash_attn.flash_attention,
                             flash_attn.flash_attention_plain),
         "conv_pe": (conv_pe.matmul_int8_fused,
@@ -580,7 +600,8 @@ def capture_calls(torch, run):
                                      low_channel, misc_pe)
     calls = {k: [] for k in KERNELS}
     patched = [(conv_pe, "matmul_int8_fused"), (conv_pe, "matmul_int8_pool"),
-               (conv_pe, "matmul_int4_fused"), (flash_attn, "paged_gather"),
+               (conv_pe, "matmul_int4_fused"),
+               (flash_attn, "paged_gather_kv"),
                (flash_attn, "flash_attention"),
                (dwc_pe, "dwc2d"), (dwc_pe, "dwc1d_causal"),
                (low_channel, "low_channel_conv"),
@@ -602,7 +623,7 @@ def capture_calls(torch, run):
                     else "low_channel")
         return {"dwc2d": "dwc", "dwc1d_causal": "dwc1d",
                 "misc_add": "misc_add", "avgpool2d": "avgpool2d",
-                "paged_gather": "paged_gather",
+                "paged_gather_kv": "paged_gather",
                 "flash_attention": "flash_attention"}[fn]
 
     def recorder(mod, fn):
@@ -636,30 +657,32 @@ def kernel_phase(torch, name, calls, timed: bool = True, reps: int = REPS,
         fail(f"{name}: the main path gave this kernel no call")
     max_err, max_rel, bytes_s, ops_s, bound = 0.0, 0.0, 0.0, 0.0, 0.0
     for args, kwargs in calls:
-        got = kern(*args, **kwargs)
-        want = plain(*args, **kwargs)
+        gots = kern(*args, **kwargs)
+        wants = plain(*args, **kwargs)
         torch.cuda.synchronize()
-        if got.dtype != want.dtype or got.shape != want.shape:
-            fail(f"{name}: kernel {got.dtype}{tuple(got.shape)} vs plain "
-                 f"{want.dtype}{tuple(want.shape)}")
-        err = float((got.to(torch.float64) - want.to(torch.float64)).abs()
-                    .max())
-        max_err = max(max_err, err)
-        if tol is not None:
-            rel = err / float(want.abs().max())
-            max_rel = max(max_rel, rel)
-            if not rel <= tol:
-                fail(f"{name}: kernel differs from its plain version by "
-                     f"{err} = {rel} x max|plain| (tolerance {tol}) at "
-                     f"shapes "
+        if not isinstance(gots, tuple):       # the gather's pair is a tuple
+            gots, wants = (gots,), (wants,)
+        for got, want in zip(gots, wants, strict=True):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                fail(f"{name}: kernel {got.dtype}{tuple(got.shape)} vs "
+                     f"plain {want.dtype}{tuple(want.shape)}")
+            err = float((got.to(torch.float64) - want.to(torch.float64))
+                        .abs().max())
+            max_err = max(max_err, err)
+            if tol is not None:
+                rel = err / float(want.abs().max())
+                max_rel = max(max_rel, rel)
+                if not rel <= tol:
+                    fail(f"{name}: kernel differs from its plain version by "
+                         f"{err} = {rel} x max|plain| (tolerance {tol}) at "
+                         f"shapes "
+                         f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
+            elif not torch.equal(got, want):
+                fail(f"{name}: kernel differs from its plain version "
+                     f"(max abs err {err}) at shapes "
                      f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
-        elif not torch.equal(got, want):
-            fail(f"{name}: kernel differs from its plain version "
-                 f"(max abs err {err}) at shapes "
-                 f"{[tuple(t.shape) for t in _tensors(args, kwargs)]}")
-        t_bytes = (sum(_nbytes(t) for t in _tensors(args, kwargs))
-                   + _nbytes(got)) / PEAK_BYTES
-        ops, peak = call_ops(name, args, kwargs, got)
+        t_bytes = call_bytes(torch, name, args, kwargs, gots) / PEAK_BYTES
+        ops, peak = call_ops(name, args, kwargs, gots[0])
         t_ops = ops / peak
         bytes_s += t_bytes
         ops_s += t_ops
@@ -975,7 +998,9 @@ def avgpool_path(torch, eng, results):
 def zoo_sweep(torch, eng, ref_eng):
     """Every zoo model at SWEEP_HW px and batch SWEEP_BATCH, fused and
     unfused on one calibration: the CUDA backend against backend="ref" on
-    the card, and the unfused program against the fused, bit for bit."""
+    the card, and the unfused program against the fused, bit for bit; each
+    program's Low-Channel stem call held bitwise against its plain
+    version."""
     import dataclasses
     import numpy as np
     from repro_torch import compiler
@@ -997,15 +1022,23 @@ def zoo_sweep(torch, eng, ref_eng):
         scales = compiler.calibrate(compiler.build_graph(cfg), params,
                                     [calib], cfg)
         qp = eng_lib.quantize_params(params, eng)
-        logits, counts = [], []
+        logits, counts, stems = [], [], []
         for fuse in (True, False):
             program = compiler.compile_cnn(cfg, scales=scales, fuse=fuse)
             qparams = compiler.fold_weight_layouts(program.graph, qp)
+            out = []
             torch.cuda.synchronize()
             _build.reset_counts()
-            got = compiler.execute(program, qparams, x, eng)
-            torch.cuda.synchronize()
+            calls = capture_calls(torch, lambda: out.append(
+                compiler.execute(program, qparams, x, eng)))
+            got = out[0]
             counts.append(dict(_build.COUNTS))
+            stem = [(kind, c) for kind in ("low_channel", "low_channel_max")
+                    for c in calls[kind]]
+            if len(stem) != 1:
+                fail(f"{name} (fuse={fuse}): {len(stem)} Low-Channel calls "
+                     "in one program run, want 1")
+            stems += stem
             want = compiler.execute(program, qparams, x, ref_eng)
             logits.append(got.cpu().numpy())
             check_logits(np, logits[-1], want.cpu().numpy(),
@@ -1013,8 +1046,13 @@ def zoo_sweep(torch, eng, ref_eng):
                          f"{name}'s ref backend (fuse={fuse})")
         check_logits(np, logits[1], logits[0],
                      (SWEEP_BATCH, cfg.num_classes), f"{name} fused")
+        with torch.inference_mode():
+            for kind, call in stems:
+                kernel_phase(torch, kind, [call], timed=False)
         log(f"sweep {name} @{SWEEP_HW}px: fused and unfused bitwise equal "
-            f"to backend='ref' and to each other; launches fused "
+            f"to backend='ref' and to each other, stems "
+            f"{'/'.join(kind for kind, _ in stems)} bitwise equal to their "
+            f"plain versions; launches fused "
             f"{json.dumps(counts[0], sort_keys=True)}, unfused "
             f"{json.dumps(counts[1], sort_keys=True)}")
 

@@ -159,7 +159,11 @@ class _DecodeCtx:
     def __init__(self, cache: dict):
         self.cache = cache
         self.pos = cache["pos"]          # [B] per-slot positions
-        self.tables = cache.get("tables")
+        tables = cache.get("tables")
+        # the paged gather takes the table as int32 [B, M]: made once a
+        # step (a no-op for the engine's own int32 table), not once a call
+        self.tables = (None if tables is None
+                       else tables.to(torch.int32).contiguous())
         self.new_layers: Dict[int, dict] = {}
 
     def entry(self, layer: int) -> dict:

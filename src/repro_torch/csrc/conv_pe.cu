@@ -54,6 +54,7 @@
 // in registers, sums the codes in int32 and writes one pooled int8 value per
 // column -- the pre-pool feature map never reaches device memory.
 #include "epilogue.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -374,10 +375,6 @@ constexpr int BK = 64;            // K bytes a stage: four 16-byte units a row
 constexpr int STAGES = 4;
 constexpr int CPAD = 8;           // int32 padding of the staged output rows
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int n) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -427,22 +424,6 @@ __device__ __forceinline__ int b_unit(int n, int c) {
   const int g = ((n >> 2) & 1) | ((((n >> 1) ^ (n >> 3)) & 1) << 1) |
                 (((n >> 4) & 1) << 2);
   return (n * 4 + c) ^ g;
-}
-
-__device__ __forceinline__ void ldmatrix4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int BM, int BN>

@@ -10,10 +10,13 @@ each beside its plain PyTorch version:
     runs it on every global-layer AttnOp on the CUDA backend.  GQA is by
     head index inside the kernel (no repeated k / v); L and S are any
     lengths (ragged tiles are masked, nothing is padded).
-  * `paged_gather` -- replaces src/repro/kernels/flash_attn.py::
-    paged_gather, kernel body `_gather_kernel` (:110): the block-table
-    gather through which paged decode reads its KV pool, a pure copy of
-    pool pages [N, P, ...] into the slot-ordered view [B, M*P, ...].
+  * `paged_gather` / `paged_gather_kv` -- replace src/repro/kernels/
+    flash_attn.py::paged_gather, kernel body `_gather_kernel` (:110): the
+    block-table gather through which paged decode reads its KV pool, a
+    pure copy of pool pages [N, P, ...] into the slot-ordered view [B,
+    M*P, ...].  `paged_gather_kv` gathers a layer's k and v pools in one
+    launch (what decode calls); `paged_gather` one pool, on the same
+    kernel.
 
 Bounds on the H100 and the designs' answers: see the notes at the top of
 the two CUDA sources.  The attention kernel agrees with its plain version
@@ -56,10 +59,8 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
 
 
 def _bind_gather(lib: ctypes.CDLL) -> None:
-    lib.paged_gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_longlong,
-                                 ctypes.c_void_p]
+    lib.paged_gather.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                 + [ctypes.c_longlong, ctypes.c_void_p])
     lib.paged_gather.restype = ctypes.c_int
 
 
@@ -119,23 +120,47 @@ def paged_gather_plain(pool: torch.Tensor,
     return ref.paged_gather(pool, tables)
 
 
-def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """pool [N, P, ...] (any element type) + block table [B, M] int32,
-    entries in [0, N-1] -> [B, M*P, ...], bitwise the pool's pages."""
-    if not pool.is_cuda:
-        return paged_gather_plain(pool, tables)
-    n, p = pool.shape[0], pool.shape[1]
+def paged_gather_kv_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          tables: torch.Tensor):
+    """The plain version of the pair: ref.paged_gather on each pool."""
+    return ref.paged_gather(k_pool, tables), ref.paged_gather(v_pool, tables)
+
+
+def _gather(pools, tables: torch.Tensor):
+    """One launch of the gather kernel over one or two pools of one page
+    shape; returns their gathered views."""
     b, m = tables.shape
-    require(pool, "pool", pool.dtype)
     require(tables, "tables", torch.int32)
-    if pool.data_ptr() % 16:
-        raise ValueError("pool: expected a 16-byte aligned tensor")
-    out = torch.empty((b, m * p) + tuple(pool.shape[2:]), dtype=pool.dtype,
-                      device=pool.device)
-    page_bytes = pool[0].numel() * pool.element_size()
+    for i, pool in enumerate(pools):
+        require(pool, f"pool {i}", pools[0].dtype, pools[0].shape)
+    n, p = pools[0].shape[0], pools[0].shape[1]
+    outs = [torch.empty((b, m * p) + tuple(pool.shape[2:]), dtype=pool.dtype,
+                        device=pool.device) for pool in pools]
+    page_bytes = pools[0][0].numel() * pools[0].element_size()
+    two = len(pools) == 2
     err = _build.library("paged_gather", _bind_gather).paged_gather(
-        pool.data_ptr(), tables.data_ptr(), out.data_ptr(), n, b, m,
-        page_bytes, _build.stream_ptr(pool))
+        pools[0].data_ptr(), pools[1].data_ptr() if two else None,
+        tables.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr() if two else None, n, b, m, page_bytes,
+        _build.stream_ptr(pools[0]))
     _build.check(err, "paged_gather")
     _build.count("paged_gather")
-    return out
+    return outs
+
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """pool [N, P, ...] (any element type) + block table [B, M] int32 ->
+    [B, M*P, ...], bitwise the pool's pages; entries outside [0, N-1] read
+    the nearest block (the kernel clamps)."""
+    if not pool.is_cuda:
+        return paged_gather_plain(pool, tables)
+    return _gather([pool], tables)[0]
+
+
+def paged_gather_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    tables: torch.Tensor):
+    """paged_gather of a layer's k and v pools (one dtype and shape)
+    through one table, in one launch: (k view, v view)."""
+    if not k_pool.is_cuda:
+        return paged_gather_kv_plain(k_pool, v_pool, tables)
+    return tuple(_gather([k_pool, v_pool], tables))

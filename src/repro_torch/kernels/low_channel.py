@@ -1,13 +1,18 @@
 """Low-Channel Conv Unit: the first-layer conv, on the H100.
 
-`low_channel_conv` wraps the CUDA kernels in csrc/low_channel.cu and
+`low_channel_conv` wraps the CUDA kernel in csrc/low_channel.cu and
 replaces src/repro/kernels/low_channel.py::low_channel_conv, kernel body
 `_kernel` (:33): the plain stem, and the stem with its fused max-pool tail
-(ResNet's 7x7/2 conv -> 3x3/2 max pool).  Bound on the H100 and the
-design's answer: see the note at the top of csrc/low_channel.cu (a
-27..147-deep reduction, bytes- and latency-bound; filter bank in shared
-memory, the im2col window read in place; the max tail pools from a conv
-tile in shared memory, so the pre-pool map is never written).
+(ResNet's 7x7/2 conv -> 3x3/2 max pool).  One templated kernel serves
+both: an implicit GEMM on the int8 tensor cores (M = conv positions, N =
+output channels, K = k*k*IC padded to a multiple of 32), the im2col tile
+built in shared memory from a staged input window, and with the max tail
+the conv tile under each pooled tile kept in shared memory (int8 codes in
+a static chain), so the pre-pool map is never written.  Bound on the H100
+and the design's answer: see the note at the top of csrc/low_channel.cu.
+
+`plan` picks the block's work (positions or pooled tile, channels); the
+kernel's launcher lays out and counts its shared memory (`layout_of`).
 
 The plain version is ref.low_channel_conv (+ the _epilogue chain for a
 pool tail), with ref.py's scale order (acc * a_scale * w_scale); the
@@ -18,7 +23,8 @@ code.  The kernel follows ref.py.  The avg and global tails have no kernel
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,17 +32,72 @@ from repro_torch.kernels import _build, _epilogue, ref
 from repro_torch.kernels._build import ptr, require
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MAX_SMEM = 48 * 1024                # default dynamic shared memory
-_TILE, _OC_BLOCK = 8, 32             # max tail: pooled tile, channel block
+SMS = 132                        # the H100 SXM's SMs
+MAX_K = 256                      # K = k*k*IC (the kernel's limit)
+MAX_OCB = 64                     # output channels a block
+POSITIONS = (256, 128)           # no tail: positions a block, largest first
+MAX_TILE_POS = 256               # max tail: conv positions under a tile,
+                                 # two m16 tiles for each of the 8 warps
+
+
+class StemPlan(NamedTuple):
+    ocb: int          # output channels a block (a multiple of 8)
+    tile_h: int       # max tail: pooled rows a block (1 without a tail)
+    tile_w: int       # max tail: pooled columns; else positions a block
+
+
+def _max_tile(pho: int, pwo: int, pk: int, ps: int):
+    """The pooled tile whose conv tile (halo included) fills at most
+    MAX_TILE_POS positions -- two m16 tiles a warp -- with the fewest conv
+    positions per pooled output (ties: the wider tile)."""
+    best = None
+    for th in range(1, pho + 1):
+        for tw in range(1, pwo + 1):
+            npos = ((th - 1) * ps + pk) * ((tw - 1) * ps + pk)
+            if npos > MAX_TILE_POS:
+                break
+            key = (npos / (th * tw), -tw)
+            if best is None or key < best[0]:
+                best = (key, th, tw)
+    return (1, 1) if best is None else best[1:]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, hp: int, wp: int, ic: int, oc: int, k: int, stride: int,
+         pool_kernel: int = 0, pool_stride: int = 0) -> StemPlan:
+    """The launch plan of one stem call: channels a block, and the block's
+    positions (no tail: the largest of POSITIONS that still gives SMS
+    blocks) or pooled tile (`_max_tile`).  Raises ValueError for a shape
+    the kernel does not take."""
+    if k * k * ic > MAX_K:
+        raise ValueError(f"low-channel K = {k}x{k}x{ic} exceeds the "
+                         f"kernel's {MAX_K}")
+    if k * ic < 3:
+        raise ValueError(f"low-channel kernel needs k * IC >= 3, got {k}x{ic}")
+    if k > min(hp, wp):
+        raise ValueError(f"{k}x{k} filter on a {hp}x{wp} input")
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    ocb = min(MAX_OCB, -(-oc // 8) * 8)
+    oc_blocks = -(-oc // ocb)
+    if pool_kernel > 0:
+        if pool_stride < 1 or pool_kernel > min(ho, wo):
+            raise ValueError(f"max tail {pool_kernel}/{pool_stride} does "
+                             f"not fit a {ho}x{wo} map")
+        pho = (ho - pool_kernel) // pool_stride + 1
+        pwo = (wo - pool_kernel) // pool_stride + 1
+        th, tw = _max_tile(pho, pwo, pool_kernel, pool_stride)
+    else:
+        th = 1
+        tw = next((bp for bp in POSITIONS
+                   if n * oc_blocks * -(-ho * wo // bp) >= SMS),
+                  POSITIONS[-1])
+    return StemPlan(ocb, th, tw)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.low_channel_conv.argtypes = [_V, _V, _V, _V, _F, _V] + [_I] * 11 + [
-        _F, _V]
+    lib.low_channel_conv.argtypes = ([_V, _V, _V, _V, _F, _V] + [_I] * 9
+                                     + [_F] + [_I] * 5 + [_V])
     lib.low_channel_conv.restype = _I
-    lib.low_channel_conv_max.argtypes = ([_V, _V, _V, _V, _F, _V]
-                                         + [_I] * 9 + [_F] + [_I] * 7 + [_V])
-    lib.low_channel_conv_max.restype = _I
 
 
 def _lib() -> ctypes.CDLL:
@@ -84,79 +145,40 @@ def low_channel_conv(x: torch.Tensor, w: torch.Tensor,
             out_scale=out_scale, out_dtype=out_dtype, pool=pool,
             pool_kernel=pool_kernel, pool_stride=pool_stride,
             mid_scale=mid_scale)
-    if pool == "max":
-        return _conv_max(x, w, bias, stride, act, float(a_scale), w_scale,
-                         pool_kernel, pool_stride, mid_scale)
-    if pool != "none":
+    if pool not in ("none", "max"):
         raise NotImplementedError(
             f"the Low-Channel {pool!r} pool tail has no CUDA kernel "
             "(no zoo model reaches it); run backend='ref'")
     n, hp, wp, ic = x.shape
     k, oc = w.shape[0], w.shape[3]
-    wsc = _check_operands(x, w, bias, w_scale)
-    if w.numel() > _MAX_SMEM:
-        raise ValueError(f"low-channel filter bank of {w.numel()} bytes "
-                         f"exceeds {_MAX_SMEM} of shared memory")
-    if out_scale is None and out_dtype != torch.float32:
-        raise ValueError(f"low-channel kernel writes f32 or int8, "
-                         f"not {out_dtype}")
-    ho = (hp - k) // stride + 1
-    wo = (wp - k) // stride + 1
-    out = torch.empty((n, ho, wo, oc), device=x.device,
-                      dtype=torch.int8 if out_scale is not None
-                      else torch.float32)
-    err = _lib().low_channel_conv(
-        x.data_ptr(), w.data_ptr(), ptr(bias), wsc.data_ptr(),
-        float(a_scale), out.data_ptr(), n, hp, wp, ic, oc, k, stride, ho, wo,
-        _build.act_code(act), int(out_scale is not None),
-        float(out_scale) if out_scale is not None else 1.0,
-        _build.stream_ptr(x))
-    _build.check(err, "low_channel")
-    _build.count("low_channel")
-    return out
-
-
-def _check_operands(x, w, bias, w_scale) -> torch.Tensor:
-    """The checks both kernels share; returns w_scale as f32 [OC]."""
-    ic = x.shape[-1]
-    k, oc = w.shape[0], w.shape[-1]
     require(x, "x", torch.int8)
     require(w, "w", torch.int8, (k, k, ic, oc))
     if bias is not None:
         require(bias, "bias", torch.float32, (oc,))
-    return require(w_scale.reshape(oc), "w_scale", torch.float32)
-
-
-def _conv_max(x, w, bias, stride: int, act: str, a_scale: float, w_scale,
-              pk: int, ps: int, mid_scale: Optional[float]) -> torch.Tensor:
-    """The stem with its max-pool tail: one launch of the tiled kernel."""
-    n, hp, wp, ic = x.shape
-    k, oc = w.shape[0], w.shape[3]
-    wsc = _check_operands(x, w, bias, w_scale)
-    ho = (hp - k) // stride + 1
-    wo = (wp - k) // stride + 1
-    if pk < 1 or ps < 1 or pk > min(ho, wo):
-        raise ValueError(f"max tail {pk}/{ps} does not fit a {ho}x{wo} map")
-    pho, pwo = (ho - pk) // ps + 1, (wo - pk) // ps + 1
-    tp, ocb = _TILE, min(_OC_BLOCK, oc)
-
-    def smem(tp):   # conv tile (f32) + the block's filter slice (int8)
-        return ((tp - 1) * ps + pk) ** 2 * ocb * 4 + k * k * ic * ocb
-
-    while tp > 1 and smem(tp) > _MAX_SMEM:
-        tp //= 2
-    if smem(tp) > _MAX_SMEM:
-        raise ValueError(f"max tail {pk}/{ps} with a {k}x{k}x{ic} filter "
-                         f"needs {smem(tp)} bytes of shared memory")
-    out = torch.empty((n, pho, pwo, oc), device=x.device,
-                      dtype=torch.int8 if mid_scale is not None
+    wsc = require(w_scale.reshape(oc), "w_scale", torch.float32)
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    if pool == "max":
+        if pool_kernel < 1 or pool_stride < 1:
+            raise ValueError(f"max tail {pool_kernel}/{pool_stride}")
+        pk, ps, scale, name = pool_kernel, pool_stride, mid_scale, \
+            "low_channel_max"
+    else:
+        if out_scale is None and out_dtype != torch.float32:
+            raise ValueError(f"low-channel kernel writes f32 or int8, "
+                             f"not {out_dtype}")
+        pk, ps, scale, name = 0, 0, out_scale, "low_channel"
+    p = plan(n, hp, wp, ic, oc, k, stride, pk, ps)
+    if pk:
+        ho, wo = (ho - pk) // ps + 1, (wo - pk) // ps + 1
+    out = torch.empty((n, ho, wo, oc), device=x.device,
+                      dtype=torch.int8 if scale is not None
                       else torch.float32)
-    err = _lib().low_channel_conv_max(
-        x.data_ptr(), w.data_ptr(), ptr(bias), wsc.data_ptr(), a_scale,
-        out.data_ptr(), n, hp, wp, ic, oc, k, stride, _build.act_code(act),
-        int(mid_scale is not None),
-        float(mid_scale) if mid_scale is not None else 1.0, pk, ps, pho, pwo,
-        tp, ocb, smem(tp), _build.stream_ptr(x))
-    _build.check(err, "low_channel_max")
-    _build.count("low_channel_max")
+    err = _lib().low_channel_conv(
+        x.data_ptr(), w.data_ptr(), ptr(bias), wsc.data_ptr(),
+        float(a_scale), out.data_ptr(), n, hp, wp, ic, oc, k, stride,
+        _build.act_code(act), int(scale is not None),
+        float(scale) if scale is not None else 1.0, pk, ps, p.tile_h,
+        p.tile_w, p.ocb, _build.stream_ptr(x))
+    _build.check(err, name)
+    _build.count(name)
     return out

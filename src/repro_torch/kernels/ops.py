@@ -553,13 +553,27 @@ def paged_gather(pool: torch.Tensor, tables: torch.Tensor,
                  cfg: EngineConfig) -> torch.Tensor:
     """Gather a block-paged KV pool [N, P, ...] into the slot-ordered dense
     view [B, M*P, ...] through block table [B, M].  Table entries are
-    clipped into [0, N-1] here, once, for both backends: unallocated pages
-    carry the sentinel N, and whatever a clipped sentinel reads sits past
-    the slot's length, where the decode mask discards it."""
-    tables = torch.clamp(tables, 0, pool.shape[0] - 1).to(torch.int32)
+    clipped into [0, N-1]: unallocated pages carry the sentinel N, and
+    whatever a clipped sentinel reads sits past the slot's length, where
+    the decode mask discards it.  backend="cuda" launches the gather kernel
+    on the int32 table as it stands (the kernel clips); the ref backend
+    clips and casts here."""
     if _kernels(cfg):
-        return flash_attn.paged_gather(pool, tables.contiguous())
+        return flash_attn.paged_gather(pool, tables)
+    tables = torch.clamp(tables, 0, pool.shape[0] - 1).to(torch.int32)
     return ref.paged_gather(pool, tables)
+
+
+def paged_gather_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    tables: torch.Tensor, cfg: EngineConfig):
+    """`paged_gather` of a layer's k and v pools through one table: (k
+    view, v view).  backend="cuda" launches the gather kernel once for both
+    and nothing else -- the table is the step's int32 [B, M] as it stands
+    (the kernel clamps its entries); the ref backend runs `paged_gather` on
+    each pool."""
+    if _kernels(cfg):
+        return flash_attn.paged_gather_kv(k_pool, v_pool, tables)
+    return paged_gather(k_pool, tables, cfg), paged_gather(v_pool, tables, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -273,8 +273,7 @@ def _paged_kv_read(entry: dict, tables: torch.Tensor, eng: EngineConfig):
     blocks' data, which the decode mask sends to exactly zero weight)."""
     from repro_torch.kernels import ops
     _kv_dtype(eng)
-    return (ops.paged_gather(entry["k"], tables, eng),
-            ops.paged_gather(entry["v"], tables, eng))
+    return ops.paged_gather_kv(entry["k"], entry["v"], tables, eng)
 
 
 def _paged_prefill_store(entry: dict, k, v, tables: torch.Tensor,

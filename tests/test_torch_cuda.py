@@ -7,7 +7,8 @@ at import).  On the machine with the card:
 
 Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
 stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
-counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes);
+counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes,
+stem K off 32 and OC off its 64-channel block, pooled tiles off the plan's);
 every output must equal the plain version bit for bit, except the flash
 attention's and the float GEMM's (K = 8960 among its shapes, f32 and bf16,
 every act, and its gradient), which agree with their plain versions to
@@ -155,10 +156,39 @@ def test_low_channel(dev):
            low_channel.low_channel_conv_plain(x, w, bias, 2, "relu", **kw))
 
 
+# the stem core (int8 tensor-core implicit GEMM) without a tail: K = 27 /
+# 108 / 100 / 147 (none a multiple of 32), OC below, at and above the
+# 64-channel block, position counts off the block's, int8 and f32 out, a
+# filter bank above 48 KB (3x3x3 x 2048)
+@pytest.mark.parametrize("hw,k,ic,stride,oc,os", [
+    (23, 3, 3, 1, 32, 0.043),      # yolov3's stem: k 3, stride 1
+    (30, 6, 3, 2, 16, 0.043),      # yolov5n's stem: k 6 (K 108 -> 128)
+    (19, 5, 4, 1, 24, None),       # K 100, f32 out
+    (33, 7, 3, 2, 72, 0.043),      # OC above the block: 64 + 8
+    (27, 3, 3, 2, 100, None),      # OC above the block, f32 out
+    (9, 3, 3, 1, 2048, 0.043)])    # 55 KB of filter, 32 channel blocks
+def test_low_channel_core(dev, hw, k, ic, stride, oc, os):
+    rng = np.random.default_rng(hw + oc)
+    x, w = _q(rng, (2, hw, hw + 2, ic), dev), _q(rng, (k, k, ic, oc), dev)
+    wsc, bias = _f(rng, (oc,), dev), _f(rng, (oc,), dev, -1.0, 1.0)
+    kw = dict(a_scale=0.0117, w_scale=wsc, out_scale=os)
+    before = _build.COUNTS.get("low_channel", 0)
+    got = low_channel.low_channel_conv(x, w, bias, stride, "relu6", **kw)
+    assert _build.COUNTS["low_channel"] == before + 1
+    _check(got, low_channel.low_channel_conv_plain(x, w, bias, stride,
+                                                   "relu6", **kw))
+    _check(low_channel.low_channel_conv(x, w, None, stride, "none", **kw),
+           low_channel.low_channel_conv_plain(x, w, None, stride, "none",
+                                              **kw))
+
+
 @pytest.mark.parametrize("hw,k,oc,pk,ps,mid", [
     (229, 7, 64, 3, 2, 0.061),     # ResNet50's stem: 112 -> 55
     (37, 3, 40, 3, 2, 0.061),      # ragged tiles, OC off the block
-    (21, 3, 24, 2, 2, None)])      # dynamic chain: f32 max
+    (21, 3, 24, 2, 2, None),       # dynamic chain: f32 max
+    (45, 7, 100, 3, 2, 0.061),     # OC above the block, static chain
+    (45, 7, 72, 3, 2, None),       # OC above the block, dynamic chain
+    (29, 3, 16, 3, 2, 0.061)])     # OC below the block, ragged tiles
 def test_low_channel_max_tail(dev, hw, k, oc, pk, ps, mid):
     rng = np.random.default_rng(hw + oc)
     x, w = _q(rng, (2, hw, hw, 3), dev), _q(rng, (k, k, 3, oc), dev)
@@ -250,6 +280,28 @@ def test_conv_pe_w4_residual(dev, res_dtype, mid, os):
     assert _build.COUNTS["conv_pe_w4_res"] == before + 1
     _check(got, conv_pe.matmul_int4_fused_plain(
         a, q4.packed, 0.0173, q4.scale, q4.zero, None, "none", os, **kw))
+
+
+@pytest.mark.parametrize("dtype,p,trailing", [
+    (torch.bfloat16, 16, (2, 128)),       # qwen2's pages: 8 KB
+    (torch.bfloat16, 3, (1, 5)),          # 30-byte pages
+    (torch.float32, 3, (3, 5)),           # 180-byte pages
+    (torch.float32, 16, (4, 256))])       # gemma2's page shape in f32
+def test_paged_gather_kv(dev, dtype, p, trailing):
+    """k and v in one launch, through a table with sentinel entries (N, one
+    past the pool) and a whole sentinel row, which the kernel clamps."""
+    n = 9
+    g = torch.Generator(device=dev).manual_seed(p)
+    k_pool, v_pool = (torch.randn((n, p) + trailing, generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+    tables = torch.tensor([[3, 0, 9, 9], [9, 9, 9, 9], [5, 2, 7, 8]],
+                          dtype=torch.int32, device=dev)
+    before = _build.COUNTS.get("paged_gather", 0)
+    got = flash_attn.paged_gather_kv(k_pool, v_pool, tables)
+    assert _build.COUNTS["paged_gather"] == before + 1
+    want = flash_attn.paged_gather_kv_plain(k_pool, v_pool, tables)
+    for a, b in zip(got, want, strict=True):
+        _check(a, b)
 
 
 @pytest.mark.parametrize("dtype,trailing", [(torch.bfloat16, (2, 128)),

@@ -339,6 +339,47 @@ def test_first_layer_conv_matches_ref_and_pallas():
         _assert_within_one_code(got, pallas)
 
 
+@pytest.mark.parametrize("name", ["resnet50", "resnet152", "mobilenetv1",
+                                  "mobilenetv2", "efficientnet",
+                                  "squeezenet", "yolov3", "yolov5n"])
+def test_low_channel_plan_fits_every_zoo_stem(name):
+    """The stem kernel's plan (pure Python) at each zoo model's stem at its
+    published input size: channel blocks of at most 64, blocks enough for
+    the 132 SMs; ResNet50's max tail on 7 x 8 pooled tiles (255 conv
+    positions, two m16 tiles a warp) and MobileNetV2's stem on 256
+    positions a block."""
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    cfg = CNN_ZOO[name]
+    k, s, hw = cfg.stem_kernel, cfg.stem_stride, cfg.input_hw
+    hp = hw + sum(t_ops._same_pad(hw, k, s))
+    pool = cfg.stages[0].kind == "pool"
+    pk, ps = (cfg.stages[0].kernel, cfg.stages[0].stride) if pool else (0, 0)
+    p = low_channel.plan(4, hp, hp, 3, cfg.stem_ch, k, s, pk, ps)
+    assert p.ocb == min(64, cfg.stem_ch)
+    ho = (hp - k) // s + 1
+    if pool:
+        pho = (ho - pk) // ps + 1
+        blocks = -(-pho // p.tile_h) * -(-pho // p.tile_w) * 4
+        assert ((p.tile_h - 1) * ps + pk) * ((p.tile_w - 1) * ps + pk) \
+            <= low_channel.MAX_TILE_POS
+    else:
+        blocks = -(-ho * ho // p.tile_w) * 4
+    assert blocks >= low_channel.SMS
+    if name == "resnet50":
+        assert (p.tile_h, p.tile_w) == (7, 8)
+    if name == "mobilenetv2":
+        assert p.tile_w == 256
+
+
+def test_low_channel_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):          # K = 9 x 9 x 4 > 256
+        low_channel.plan(1, 32, 32, 4, 16, 9, 1)
+    with pytest.raises(ValueError):          # k * IC < 3
+        low_channel.plan(1, 32, 32, 1, 16, 2, 1)
+    with pytest.raises(ValueError):          # a pool window past the map
+        low_channel.plan(1, 9, 9, 3, 16, 3, 2, 5, 2)
+
+
 # ---------------------------------------------------------------------------
 # The int8 Conv PE's launch planner (pure Python; the kernels need the card)
 # ---------------------------------------------------------------------------

@@ -270,6 +270,28 @@ def test_paged_gather_bitwise_with_sentinels(dtype):
         _np(flash_attn.paged_gather_plain(_t(pool), _t(clipped))), want)
 
 
+def test_paged_gather_kv_matches_reference():
+    """ops.paged_gather_kv -- a layer's k and v pools through one table --
+    on the ref backend, and the CUDA backend's plain version on CPU
+    tensors, against the reference's Pallas gather (interpret mode) on
+    each pool, sentinel entries included (the shapes above, so the
+    reference's gather compiles once)."""
+    rng = np.random.default_rng(7)
+    n, p, hkv, d = 6, 4, 2, 8
+    k_pool, v_pool = ((rng.normal(size=(n, p, hkv, d)) * 50).astype(
+        np.float32) for _ in range(2))
+    tables = np.array([[3, 0, 6, 6], [5, 1, 2, 4], [6, 6, 6, 6]], np.int32)
+    pallas = JEng(quant="w4a8", backend="pallas", interpret=True)
+    want = [np.asarray(j_ops.paged_gather(jnp.asarray(pool),
+                                          jnp.asarray(tables), pallas))
+            for pool in (k_pool, v_pool)]
+    for eng in (T_W4, T_W4_CUDA):
+        got = t_ops.paged_gather_kv(_t(k_pool), _t(v_pool), _t(tables), eng)
+        assert len(got) == 2
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(_np(g), w)
+
+
 def test_paged_gather_bf16_is_a_copy():
     pool = torch.randn(5, 4, 2, 8, generator=torch.Generator().manual_seed(0)
                        ).to(torch.bfloat16)
