@@ -45,9 +45,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      token batch, served by ServeEngine(quant="w4a8", backend="cuda",
      kv_layout="paged", page_size=16, batch_size=4, max_seq=128,
      prefill_len=64, decode_burst=4): the kernel phases of the int4 Conv PE
-     (plain and residual), the paged gather and the flash attention at the
-     shapes of one prefill and one decode step (timed per decode step, and
-     per prefill), then 8 requests of 16-64 prompt tokens and 32 new tokens
+     (plain and residual; plans logged, kernels/conv_pe.plan_w4: weight
+     streaming at a decode step, tensor-core tiles at a prefill), the paged
+     gather and the flash attention at the shapes of one prefill and one
+     decode step (timed per decode step, and per prefill; the int4 GEMMs
+     with the L2 flushed before every repeat, as the int8 ones), then 8
+     requests of 16-64 prompt tokens and 32 new tokens
      each with the counters zeroed around them (56 / 56 / 28 launches per
      decode step, the paged gather one a layer for k and v; 56 / 56 / 0
      and 28 flash_attention per prefill), the same trace 10 times more
@@ -64,8 +67,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      scaled embeddings), seeded weights, on the qwen2 cell's engine and
      trace: the flash attention held within ATTN_TOL of max|plain| against
      its plain version and timed at one gemma2 prefill and at a 2048-token
-     shape; the int4 Conv PE, the MISC add and the paged gather held
-     bitwise at gemma2's shapes; the trace with the counters zeroed around
+     shape; the int4 Conv PE (plans logged; timed cold per decode step and
+     per prefill), the MISC add and the paged gather held bitwise at
+     gemma2's shapes; the trace with the counters zeroed around
      it (4 int4 GEMMs and 2 misc_add on every layer, paged_gather (k and v
      in one launch) and flash_attention on the 13 global layers only), 3
      steady traces, one profiled prefill and decode step; ids
@@ -278,7 +282,9 @@ def l2_flush(torch):
     """(flush, its kernel names): a read of 128 MB, more than the H100's
     50 MB L2, so the next call finds its operands in HBM (a read leaves no
     dirty lines to write back during that call).  Made once; the names are
-    read off a trace of the flush alone."""
+    read off a trace of the flush alone, taken again (up to four traces)
+    while the profiler loses its events: with no names, cuda_ms would
+    count the flush as the call's device time."""
     from torch.profiler import ProfilerActivity, profile
     if not _FLUSH:
         buf = torch.ones(32 * 2**20, dtype=torch.int32, device="cuda")
@@ -287,11 +293,18 @@ def l2_flush(torch):
             buf.sum()
         flush()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush()
-            torch.cuda.synchronize()
-        _FLUSH.update(fn=flush, keys={e.key for e in prof.key_averages()
-                                      if _self_us(e) > 0})
+        keys = set()
+        for _ in range(4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                flush()
+                torch.cuda.synchronize()
+            keys = {e.key for e in prof.key_averages() if _self_us(e) > 0}
+            if keys:
+                break
+        if not keys:
+            fail("torch.profiler saw no kernel of the L2 flush in four "
+                 "traces")
+        _FLUSH.update(fn=flush, keys=keys)
     return _FLUSH["fn"], _FLUSH["keys"]
 
 
@@ -722,20 +735,30 @@ def log_kernel(name, r, per="program run"):
 
 
 def log_plans(label, calls):
-    """The launch plan (kernels/conv_pe.plan: path, tile, K splits, copy
-    widths, epilogue placement) of each int8 Conv PE shape among `calls`
-    ({kernel name: [(args, kwargs)]}), with its call count: a run shows
-    where each of the two paths is taken."""
+    """The launch plan of each int8 Conv PE shape among `calls` ({kernel
+    name: [(args, kwargs)]}; kernels/conv_pe.plan: path, tile, K splits,
+    copy widths, epilogue placement) and of each int4 one (conv_pe.plan_w4:
+    route, tile, groups a chunk, copy widths), with its
+    call count: a run shows where each route is taken."""
     from repro_torch.kernels import conv_pe
     shapes = {}
-    for name in ("conv_pe", "conv_pe_res"):
+    for name in ("conv_pe", "conv_pe_res", "conv_pe_w4", "conv_pe_w4_res"):
         for args, _ in calls.get(name, ()):
             a, b = args[0], args[1]
-            key = (name, a.shape[0], b.shape[1], a.shape[1],
+            k = a.shape[1]
+            gs = k // args[3].shape[0] if "w4" in name else 0
+            key = (name, a.shape[0], b.shape[1], k, gs,
                    conv_pe.byte_align(a), conv_pe.byte_align(b))
             shapes[key] = shapes.get(key, 0) + 1
     paths = {}
-    for (name, m, n, k, aa, ba), count in sorted(shapes.items()):
+    for (name, m, n, k, gs, aa, ba), count in sorted(shapes.items()):
+        if gs:
+            p = conv_pe.plan_w4(m, n, k, gs, aa, ba)
+            paths[p.route] = paths.get(p.route, 0) + count
+            log(f"plan {label} {name} M={m} N={n} K={k} gs={gs} x{count}: "
+                f"{p.route} tile {p.bm}x{p.bn}, {p.gc} groups a chunk, "
+                f"copies {p.wa}/{p.wb} B")
+            continue
         p = conv_pe.plan(m, n, k, aa, ba)
         paths[p.path] = paths.get(p.path, 0) + count
         log(f"plan {label} {name} M={m} N={n} K={k} x{count}: {p.path} "
@@ -1162,12 +1185,13 @@ def lm_serve(torch, engine, prompts, label, per_layer=None, cfg=LM):
 
 
 def lm_kernel_phases(torch, engine, prompts, names, results, label,
-                     per_layer, cfg=LM, timed=True, cold=False):
+                     per_layer, cfg=LM, timed=None, cold=()):
     """Every kernel call of one prefill and one decode step (one request
     per slot, one new token), each held bitwise against its plain version;
-    when `timed`, the decode step's calls timed (into `results` when given)
-    and the prefill's, with the L2 flushed before every repeat when `cold`.
-    Returns the recorded calls."""
+    the kernels named in `timed` (all of `names` when None) then timed per
+    decode step (into `results` when given) and per prefill, those named in
+    `cold` with the L2 flushed before every repeat.  Returns the recorded
+    calls."""
     calls = capture_calls(torch, lambda: engine.generate(
         prompts[:cfg["batch"]], max_new_tokens=1))
     log_plans(label, calls)
@@ -1185,7 +1209,7 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label,
         if len(dec) != want_dec or len(pre) != want_pre:
             fail(f"{label} {name}: {len(pre)} prefill and {len(dec)} decode "
                  f"calls, want {want_pre} and {want_dec}")
-        if not timed:
+        if timed is not None and name not in timed:
             with torch.inference_mode():
                 r = kernel_phase(torch, name, dec + pre, timed=False)
             log(f"kernel {name} at {label} shapes: {len(dec)} decode-step "
@@ -1195,14 +1219,15 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label,
         # the plain int4 GEMM runs its groups in sequence (thousands of
         # launches a step), so it is timed over fewer repeats
         with torch.inference_mode():
-            r = kernel_phase(torch, name, dec, plain_reps=3, cold=cold)
+            r = kernel_phase(torch, name, dec, plain_reps=3,
+                             cold=name in cold)
         log_kernel(f"{name} ({label})", r, per="decode step")
         if results is not None:
             results[name] = r
         if pre:
             with torch.inference_mode():
                 r = kernel_phase(torch, name, pre, reps=5, plain_reps=2,
-                                 cold=cold)
+                                 cold=name in cold)
             log_kernel(f"{name} ({label})", r, per="prefill")
     return calls
 
@@ -1369,7 +1394,8 @@ def lm_path(torch, results, add):
     engine = lm_engine(torch, arch, params, calib, "w4a8", "cuda", "paged")
     calls = lm_kernel_phases(torch, engine, prompts,
                              ("conv_pe_w4", "conv_pe_w4_res", "paged_gather"),
-                             results, "w4a8", LM_PER_LAYER["w4a8"])
+                             results, "w4a8", LM_PER_LAYER["w4a8"],
+                             cold=("conv_pe_w4", "conv_pe_w4_res"))
     attention_phase(torch, calls["flash_attention"], arch.name,
                     n_global(arch))
     del calls
@@ -1401,7 +1427,8 @@ def lm_path(torch, results, add):
     # -- w8a8: the int8 Conv PE at the LM's shapes ---------------------------
     engine = lm_engine(torch, arch, params, calib, "w8a8", "cuda", "paged")
     lm_kernel_phases(torch, engine, prompts, ("conv_pe", "conv_pe_res"),
-                     None, "w8a8 LM", LM_PER_LAYER["w8a8"], cold=True)
+                     None, "w8a8 LM", LM_PER_LAYER["w8a8"],
+                     cold=("conv_pe", "conv_pe_res"))
     ids8, counts, _ = lm_serve(torch, engine, prompts, "w8a8/cuda/paged",
                                LM_PER_LAYER["w8a8"])
     add(counts)
@@ -1508,7 +1535,8 @@ def gemma2_path(torch, results, add):
                        GEMMA)
     calls = lm_kernel_phases(torch, engine, prompts,
                              ("conv_pe_w4", "misc_add", "paged_gather"), None,
-                             arch.name, GEMMA_PER_LAYER, GEMMA, timed=False)
+                             arch.name, GEMMA_PER_LAYER, GEMMA,
+                             timed=("conv_pe_w4",), cold=("conv_pe_w4",))
     r = attention_phase(torch, calls["flash_attention"], arch.name,
                         n_global(arch))
     r["max_abs_err"] = max(r["max_abs_err"], long_r["max_abs_err"])

@@ -4,6 +4,7 @@
     PYTHONPATH=src python scripts/conv_pe_probe.py
     python scripts/conv_pe_probe.py --serve [--src OTHER_TREE/src]
     python scripts/conv_pe_probe.py --float [--host]
+    python scripts/conv_pe_probe.py --w4 [--parts]
 
 Default: for each shape, every candidate plan -- the planner's own, the
 other path where both kernels take the shape, other K splits of the
@@ -48,6 +49,21 @@ times them; --fixed: those alone): each kernel of the planned call and of
 cuBLAS's, every K split, a ladder of K with its least-squares line (us at
 zero K steps and a step), and an empty kernel launched with the tiles'
 block and shared memory at the plan's grid.
+
+--w4: the int4 Conv PE (matmul_int4_fused) at the w4a8 projections of
+qwen2-1.5b and gemma2-2b (QKV, gate/up, O, down; group size 64) at M = 4
+(a decode step), 16 and 256 (a prefill): every candidate plan -- each
+stream strip at M <= 16, the 64 x 64 tensor-core tiles at M > 4 --
+forced through `conv_pe.plan_w4`, held bit for bit against the
+plain version and timed with `cuda_ms(cold=True)`, beside the int8 Conv PE
+at the same (M, N, K) (its own plan, cold) as the yardstick and the bound
+(the packed weights, f16 scales and zeros, A and the int8 output at 3.35
+TB/s, or the MACs at 1,979 TOPS).  W4_STREAM_MAX_M and plan_w4's strip rule
+are read off these lines.  --w4 --parts builds variants of
+csrc/conv_pe_w4.cu with one part cut out by a textual edit (W4_PARTS: the
+stream kernel's weight copies, products, atomics and fold; the tiles'
+products, unpack and fold) and times each on the planned plan at qwen2's
+gate/up and down at M = 4 and 256, cold: where each kernel's time goes.
 
 Needs one GPU; prints the card's name and power limit first.
 """
@@ -634,6 +650,173 @@ def float_host(torch, np, conv_pe, rng) -> None:
         f"{k} {host_us(torch, f, 2000):.2f}" for k, f in parts.items()))
 
 
+# --w4: the int4 Conv PE at the w4a8 projections of the served LMs, (N, K)
+# of qwen2-1.5b's and gemma2-2b's QKV, gate/up, O and down (group size 64),
+# at a decode step (M = 4), between (16) and a prefill (256)
+W4_SHAPES = (("qwen2 QKV", 2048, 1536), ("qwen2 gate/up", 17920, 1536),
+             ("qwen2 O", 1536, 1536), ("qwen2 down", 1536, 8960),
+             ("gemma2 QKV", 4096, 2304), ("gemma2 gate/up", 18432, 2304),
+             ("gemma2 O", 2304, 2048), ("gemma2 down", 2304, 9216))
+W4_M = (4, 16, 256)
+W4_GS = 64
+
+
+def w4_candidates(conv_pe, m, n, k, wa, wb):
+    """The plans conv_pe.plan_w4 can name at (M, N, K): at M <= 16 every
+    stream strip, at M > 4 the tensor-core tiles; at M = 256 the planner's
+    stream strip too (the route's cost)."""
+    out = []
+    if m <= 16:
+        out += [conv_pe.stream_plan_w4(m, n, k, W4_GS, wa, wb, bn)
+                for bn in conv_pe.W4_BNS]
+    else:
+        out.append(conv_pe.stream_plan_w4(m, n, k, W4_GS, wa, wb))
+    if m > 4:
+        out.append(conv_pe.mma_plan_w4(m, n, k, W4_GS, wa, wb))
+    return out
+
+
+def w4_plans(torch, np, smoke, conv_pe) -> bool:
+    """Every candidate plan of the int4 GEMM forced through plan_w4, held
+    bit for bit against the plain version and timed cold, beside the int8
+    Conv PE at the same (M, N, K) (its own plan, cold) and the bound."""
+    from repro_torch.core.quant import pack_int4
+    rng = np.random.default_rng(4)
+    good = True
+    for m in W4_M:
+        for tag, n, k in W4_SHAPES:
+            a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(
+                np.int8)).cuda()
+            q4 = pack_int4(torch.from_numpy(rng.normal(size=(k, n)).astype(
+                np.float32)).cuda(), W4_GS)
+            args = (a, q4.packed, 0.0173, q4.scale, q4.zero, None, "relu",
+                    0.0621)
+            want = conv_pe.matmul_int4_fused_plain(*args)
+            b8, wsc = operands(torch, np, m, n, k, rng)[1:]
+            lib = smoke.cuda_ms(torch, lambda: conv_pe.matmul_int8_fused(
+                a, b8, 0.0173, wsc, None, "relu", 0.0621), REPS, cold=True)
+            g = k // W4_GS
+            bound = max((m * k + k * n // 2 + 4 * g * n + m * n) / 3.35e12,
+                        2.0 * m * n * k / 1979e12) * 1e3
+            planned = conv_pe.plan_w4(m, n, k, W4_GS, conv_pe.byte_align(a),
+                                      conv_pe.byte_align(q4.packed))
+            orig = conv_pe.plan_w4
+            for p in w4_candidates(conv_pe, m, n, k, planned.wa, planned.wb):
+                conv_pe.plan_w4 = lambda *_a, _p=p: _p
+                try:
+                    ok = bool(torch.equal(conv_pe.matmul_int4_fused(*args),
+                                          want))
+                    ms = smoke.cuda_ms(
+                        torch, lambda: conv_pe.matmul_int4_fused(*args),
+                        REPS, cold=True)
+                finally:
+                    conv_pe.plan_w4 = orig
+                good &= ok
+                log(f"w4 {tag} M={m} N={n} K={k}: {p.route} {p.bm}x{p.bn} "
+                    f"gc {p.gc}"
+                    f"{' (planned)' if p == planned else ''}: {ms[0]:.4f} ms "
+                    f"({ms[1]:.4f}) {'bitwise' if ok else 'DIFFERS'}; int8 "
+                    f"conv_pe {lib[0]:.4f} ({lib[1]:.4f}) ms; bound "
+                    f"{bound:.4f} ms")
+    return good
+
+
+# --w4 --parts: variants of csrc/conv_pe_w4.cu, each with one part cut out
+# by a textual edit (results no longer bitwise; timing only).  An edit whose
+# text is not in the source once fails the probe: keep these in step.
+W4_PARTS = (
+    ("nothing", ()),
+    ("stream: the weight copies",
+     (("        cp_async<16>(dst, col < N ? src : P, col < N);",
+       "        if (c < 0) cp_async<16>(dst, col < N ? src : P, col < N);"),)),
+    ("stream: the products (__dp4a)",
+     (("                  __dp4a(av[m], static_cast<int>(cw[i]), "
+       "acc[m][4 * j + i]);",
+       "                  av[m] ^ static_cast<int>(cw[i]) ^ "
+       "acc[m][4 * j + i];"),)),
+    ("stream: the sub-tasks' atomics",
+     (("        for (int j = 0; j < CW; ++j) atomicAdd(dst + m * BN + j, "
+       "acc[m][j]);",
+       "        for (int j = 0; j < CW; ++j) dst[m * BN + j] = acc[m][j];"),)),
+    ("stream: the fold",
+     (("    if (folds && c > 0) fold(c - 1);",
+       "    if (folds && c < 0) fold(c - 1);"),
+      ("  fold(chunks - 1);\n", ""))),
+    ("tiles: the products (mma)",
+     (("          mma_s8_from(acc[j], af,",
+       "          if (kt < 0) mma_s8_from(acc[j], af,"),
+      ("          mma_s8(acc[j], af,",
+       "          if (kt < 0) mma_s8(acc[j], af,"))),
+    ("tiles: the unpack",
+     (("      unpack_stage(reinterpret_cast<const int8_t*>(",
+       "      if (kt < 0) unpack_stage(reinterpret_cast<const int8_t*>("),)),
+    ("tiles: the fold",
+     (("      if (kin < gs) continue;",
+       "      if (kin < gs || kt >= 0) {\n        kin = kin < gs ? kin : 0;\n"
+       "        continue;\n      }"),)),
+)
+# (tag, M, N, K): the planned plan of each is timed under every variant
+W4_PARTS_AT = (("qwen2 gate/up", 4, 17920, 1536),
+               ("qwen2 down", 4, 1536, 8960),
+               ("qwen2 gate/up", 256, 17920, 1536),
+               ("qwen2 down", 256, 1536, 8960))
+
+
+def w4_parts(torch, np, smoke, conv_pe) -> None:
+    """Each W4_PARTS variant of the int4 GEMM built, bound in place of the
+    library and timed cold on the planned plan at W4_PARTS_AT."""
+    import ctypes
+    from repro_torch.core.quant import pack_int4
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "conv_pe_w4.cu").read_text()
+    jobs = []
+    for i, (what, edits) in enumerate(W4_PARTS):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"conv_pe_probe: {old!r} is not in the "
+                                 "source once")
+            text = text.replace(old, new)
+        cu = _build.CSRC / f"w4_probe_{i}.cu"
+        cu.write_text(text)
+        out = _build.BUILD / f"w4_probe_{i}.so"
+        _build.BUILD.mkdir(exist_ok=True)
+        jobs.append((what, cu, out, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for what, cu, out, proc in jobs:
+        log_text, _ = proc.communicate()
+        cu.unlink()
+        if proc.returncode:
+            raise SystemExit(f"conv_pe_probe: nvcc failed for {what}:\n"
+                             f"{log_text}")
+        lib = ctypes.CDLL(str(out))
+        conv_pe._bind_w4(lib)
+        libs.append((what, lib))
+    rng = np.random.default_rng(5)
+    cases = []
+    for tag, m, n, k in W4_PARTS_AT:
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(
+            np.int8)).cuda()
+        q4 = pack_int4(torch.from_numpy(rng.normal(size=(k, n)).astype(
+            np.float32)).cuda(), W4_GS)
+        cases.append((f"{tag} M={m}", (a, q4.packed, 0.0173, q4.scale,
+                                       q4.zero, None, "relu", 0.0621)))
+    saved = _build._libs.get("conv_pe_w4")
+    try:
+        for what, lib in libs:
+            _build._libs["conv_pe_w4"] = lib
+            times = [smoke.cuda_ms(
+                torch, lambda: conv_pe.matmul_int4_fused(*args), REPS,
+                cold=True)[0] for _, args in cases]
+            log(f"w4 parts, cut {what}: " + ", ".join(
+                f"{tag} {t:.4f} ms" for (tag, _), t in zip(cases, times)))
+    finally:
+        if saved is not None:
+            _build._libs["conv_pe_w4"] = saved
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", action="store_true",
@@ -643,6 +826,11 @@ def main() -> int:
                     help="the float GEMM's candidate plans against cuBLAS")
     ap.add_argument("--host", action="store_true",
                     help="with --float: only the wrapper's host cost")
+    ap.add_argument("--w4", action="store_true",
+                    help="the int4 GEMM's candidate plans at the LM shapes")
+    ap.add_argument("--parts", action="store_true",
+                    help="with --w4: only the int4 GEMM's parts, each cut "
+                    "out in turn")
     ap.add_argument("--fixed", action="store_true",
                     help="with --float: only the short products' fixed "
                     "costs")
@@ -667,6 +855,12 @@ def main() -> int:
     _build.build_all()
     if args.serve:
         good = serve(torch, np, smoke, conv_pe)
+    elif args.w4:
+        good = True
+        if args.parts:
+            w4_parts(torch, np, smoke, conv_pe)
+        else:
+            good = w4_plans(torch, np, smoke, conv_pe)
     elif args.float_:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.\

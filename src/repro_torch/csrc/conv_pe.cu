@@ -173,22 +173,6 @@ epilogue_pass(const int* __restrict__ part, void* __restrict__ C, int M,
   store4(e, col_of(e, n), acc, m, cnt, n, N, C);
 }
 
-// Columns 0..3 of rows r0..r3 (one byte each) -> rows 0..3 of columns c0..c3:
-// c_j holds column j's four k bytes, k = 0 in the low byte.
-__device__ __forceinline__ void transpose4(unsigned r0, unsigned r1,
-                                           unsigned r2, unsigned r3,
-                                           unsigned& c0, unsigned& c1,
-                                           unsigned& c2, unsigned& c3) {
-  const unsigned t0 = __byte_perm(r0, r1, 0x5140);   // r0b0 r1b0 r0b1 r1b1
-  const unsigned t1 = __byte_perm(r0, r1, 0x7362);   // r0b2 r1b2 r0b3 r1b3
-  const unsigned t2 = __byte_perm(r2, r3, 0x5140);
-  const unsigned t3 = __byte_perm(r2, r3, 0x7362);
-  c0 = __byte_perm(t0, t2, 0x5410);
-  c1 = __byte_perm(t0, t2, 0x7632);
-  c2 = __byte_perm(t1, t3, 0x5410);
-  c3 = __byte_perm(t1, t3, 0x7632);
-}
-
 // ---------------------------------------------------------------------------
 // Small M: split-K weight streaming
 // ---------------------------------------------------------------------------
@@ -374,57 +358,6 @@ constexpr int MM_THREADS = 256;   // 8 warps
 constexpr int BK = 64;            // K bytes a stage: four 16-byte units a row
 constexpr int STAGES = 4;
 constexpr int CPAD = 8;           // int32 padding of the staged output rows
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-// 16 bytes of a row from byte `col` into dst, zero-filled from `limit` on.
-// V16: one 16-byte cp.async; else pieces of w bytes (8 / 4 by cp.async, 2 /
-// 1 byte by byte), each lying wholly before or after `limit`.
-template <bool V16>
-__device__ __forceinline__ void copy16(int8_t* dst, const int8_t* row,
-                                       int col, int limit, int w) {
-  if (V16) {
-    const bool ok = col < limit;
-    cp_async16(dst, ok ? row + col : row, ok ? 16 : 0);
-  } else if (w >= 4) {
-    for (int p = 0; p < 16; p += w) {
-      const bool ok = col + p < limit;
-      const int8_t* src = ok ? row + col + p : row;
-      const unsigned d = smem_addr(dst + p);
-      const int n = ok ? w : 0;
-      if (w == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(d), "l"(src), "r"(n));
-      else if (w == 8)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                     :: "r"(d), "l"(src), "r"(n));
-      else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(d), "l"(src), "r"(n));
-    }
-  } else {
-    for (int p = 0; p < 16; ++p)
-      dst[p] = col + p < limit ? row[col + p] : int8_t(0);
-  }
-}
-
-// 16-byte unit c of K-major row r in a [rows][BK] tile.  A tiles: 8
-// consecutive rows of one unit land in 8 distinct bank groups (ldmatrix).
-__device__ __forceinline__ int a_unit(int r, int c) {
-  return r * 4 + (c ^ ((r >> 1) & 3));
-}
-// The transposed B tile: conflict-free for ldmatrix (8 consecutive columns,
-// one unit) and for the transposing 16-byte stores (columns 4l + j, l =
-// 0..7).  The XOR stays inside a pair of rows.
-__device__ __forceinline__ int b_unit(int n, int c) {
-  const int g = ((n >> 2) & 1) | ((((n >> 1) ^ (n >> 3)) & 1) << 1) |
-                (((n >> 4) & 1) << 2);
-  return (n * 4 + c) ^ g;
-}
 
 template <int BM, int BN>
 constexpr int mma_smem() {

@@ -14,7 +14,17 @@ PyTorch version:
     `_kernel_w4` (:189) and `_kernel_w4_res` (:208): int8 activations times
     packed int4 weights with per-group scale and zero (the w4a8 LM
     projections; the residual variant carries the O / down projection's
-    residual add).  Kernel in csrc/conv_pe_w4.cu.
+    residual add), bit for bit equal to its plain version, whose f32 fold
+    runs the groups in order.  Kernels in csrc/conv_pe_w4.cu.
+    `plan_w4(M, N, K, gs, ...)` picks per product the route -- weight
+    streaming (4-row blocks of 16 or 32 columns over all of K, the groups
+    of each chunk split among the block's threads and folded in order in
+    shared memory) at M <= W4_STREAM_MAX_M or where the groups are not
+    multiples of 32 K rows, int8 tensor-core tiles of 64 x 64 (each group
+    folded in registers) otherwise -- with the strip and the chunk (the K
+    split inside a block) read off scripts/conv_pe_probe.py --w4.  No plan
+    splits K across blocks, so no f32 partial sum is ever handed on, and
+    the epilogue runs in the kernel.
   * `matmul_f_fused` -- replaces `matmul_f_fused`, kernel body `_kernel_f`
     (:429): the float GEMM with f32 accumulation, bias and act, which
     runs every float projection of the training path (ops.linear_f on
@@ -62,9 +72,9 @@ _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _bind_w4(lib: ctypes.CDLL) -> None:
-    lib.conv_pe_w4.argtypes = [_V, _V, _V, _V, _V, _I, _I, _I, _I, _V, _F,
-                               _V, _I, _I, _V, _F, _V, _I, _F, _I, _F, _I,
-                               _V]
+    lib.conv_pe_w4.argtypes = [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _V, _F, _V, _I, _I, _V, _F,
+                               _V, _I, _F, _I, _F, _I, _V]
     lib.conv_pe_w4.restype = _I
 
 
@@ -426,7 +436,67 @@ def matmul_int4_fused_plain(a_q, b_packed, a_scale: Scale, w_scale, w_zero,
                           mid_scale, add_act)
 
 
-W4_MAX_GROUP = 1024      # the kernel stages whole groups of <= 1024 K rows
+W4_MAX_GROUP = 1024      # the kernels take group sizes up to 1024 K rows
+# the planner's rules, read off scripts/conv_pe_probe.py --w4 on the H100
+W4_STREAM_MAX_M = 16     # M up to this streams the weights; tiles above
+W4_BNS = (32, 16)        # stream strips: columns a block
+W4_GC = 64               # a stream chunk: groups at most ...
+W4_CHUNK = 26 << 10      # ... and bytes of packed weights
+W4_TILE = (64, 64)       # the tensor-core tile, rows x columns (masked)
+
+
+class PlanW4(NamedTuple):
+    """One int4 product's launch: `route` "stream" (4-row blocks of `bn`
+    columns over all of K, in chunks of `gc` groups, each chunk's groups
+    split among the block's threads in sub-tasks of two quads of 4 k: the
+    K split) or "mma" (bm x bn tensor-core tiles, each group folded in
+    registers; gc = 0); wa / wb the copy widths of A's and the packed B's
+    rows in bytes.  K is never split across blocks, and the epilogue always
+    runs in the kernel that folds the groups (csrc/conv_pe_w4.cu)."""
+    route: str
+    bm: int
+    bn: int
+    gc: int
+    wa: int
+    wb: int
+
+
+def stream_plan_w4(m: int, n: int, k: int, gs: int, wa: int, wb: int,
+                   bn: Optional[int] = None) -> PlanW4:
+    """Weight streaming: 4 rows a block; `bn` columns (by default 32 where
+    that puts SMS blocks on the card, else 16: the narrow strips fill the
+    SMs at N = 1536 / 2304); chunks of up to W4_GC groups and W4_CHUNK
+    bytes of packed weights (each group's gs / 2 rows of bn bytes and its
+    padding, csrc/conv_pe_w4.cu w_group), evened out over the chunks K
+    takes."""
+    if bn is None:
+        bn = 32 if math.ceil(n / 32) * math.ceil(m / 4) >= SMS else 16
+    ct = bn // 16                               # column threads a block
+    g = k // gs
+    gc = max(1, min(g, W4_GC, W4_CHUNK // (gs // 2 * bn + 16 * ct)))
+    gc = math.ceil(g / math.ceil(g / gc))       # chunks of even size
+    return PlanW4("stream", 4, bn, gc, wa, wb)
+
+
+def mma_plan_w4(m: int, n: int, k: int, gs: int, wa: int,
+                wb: int) -> PlanW4:
+    """Tensor-core tiles of W4_TILE (gs a multiple of 32)."""
+    return PlanW4("mma", *W4_TILE, 0, wa, wb)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_w4(m: int, n: int, k: int, gs: int, a_align: int,
+            b_align: int) -> PlanW4:
+    """The launch of one M x K x N int4 product of group size gs, given the
+    operands' byte alignment (pure and cached, as `plan`): `stream_plan_w4`
+    at M <= W4_STREAM_MAX_M or where the tensor cores cannot take the groups
+    (gs not a multiple of 32), `mma_plan_w4` otherwise."""
+    if min(m, n, k) < 1 or k % gs:
+        raise ValueError(f"conv_pe_w4: M={m} N={n} K={k} in groups of {gs}")
+    wa, wb = _width(k, a_align), _width(n, b_align)
+    if m <= W4_STREAM_MAX_M or gs % 32:
+        return stream_plan_w4(m, n, k, gs, wa, wb)
+    return mma_plan_w4(m, n, k, gs, wa, wb)
 
 
 def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
@@ -444,7 +514,8 @@ def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
     up to 1024); a_scale a Python float (static) or f32 [M, 1]; bias f32
     [N] or None; out_scale None (f32 out), a Python float or an [N]-sized
     vector (int8 out).  residual [M, N] (int8 with res_scale, or f32)
-    selects the residual variant.  M and N are any size (masked)."""
+    selects the residual variant.  M and N are any size (masked).  Runs
+    `plan_w4(M, N, K, gs)`: one launch, counted once."""
     if not a_q.is_cuda:
         return matmul_int4_fused_plain(
             a_q, b_packed, a_scale, w_scale, w_zero, bias, act, out_scale,
@@ -483,10 +554,13 @@ def matmul_int4_fused(a_q: torch.Tensor, b_packed: torch.Tensor,
     out = torch.empty((m, n), device=a_q.device,
                       dtype=torch.int8 if out_scale is not None
                       else torch.float32)
+    gs = k // g
+    p = plan_w4(m, n, k, gs, byte_align(a_q), byte_align(b_packed))
     err = _build.library("conv_pe_w4", _bind_w4).conv_pe_w4(
         a_q.data_ptr(), b_packed.data_ptr(), w_scale.data_ptr(),
-        w_zero.data_ptr(), out.data_ptr(), m, n, k, k // g, ptr(asc),
-        float(a_scale) if asc is None else 0.0, ptr(bias),
+        w_zero.data_ptr(), out.data_ptr(), m, n, k, gs,
+        int(p.route == "mma"), p.bm, p.bn, p.gc, p.wa, p.wb,
+        ptr(asc), float(a_scale) if asc is None else 0.0, ptr(bias),
         _build.act_code(act), int(out_scale is not None), ptr(os_vec),
         os_val, ptr(residual),
         int(residual is not None and residual.dtype == torch.float32),

@@ -243,43 +243,114 @@ def _w4(rng, dev, m, k, n, gs):
     return a, pack_int4(w, gs)
 
 
-@pytest.mark.parametrize("m,k,n,gs", [(4, 1536, 2048, 64), (37, 192, 70, 64),
-                                      (9, 8960, 33, 64), (5, 96, 40, 32)])
+def _w4_plans(m, n, k, gs, a, b):
+    """Every plan conv_pe.plan_w4 can name for the product: each stream
+    strip, and the tensor-core tiles where the groups are multiples of
+    32."""
+    wa = conv_pe._width(k, conv_pe.byte_align(a))
+    wb = conv_pe._width(n, conv_pe.byte_align(b))
+    plans = [conv_pe.stream_plan_w4(m, n, k, gs, wa, wb, bn)
+             for bn in conv_pe.W4_BNS]
+    if gs % 32 == 0:
+        plans.append(conv_pe.mma_plan_w4(m, n, k, gs, wa, wb))
+    return plans
+
+
+def _w4_each_plan(monkeypatch, kernel, m, n, k, gs, args, kwargs):
+    """Run the int4 GEMM on every plan (forced through plan_w4), each one
+    launch counted under `kernel`, and hold each bit for bit against the
+    plain version -- so the routes and strips agree with each other too."""
+    want = conv_pe.matmul_int4_fused_plain(*args, **kwargs)
+    planned = conv_pe.plan_w4(m, n, k, gs, conv_pe.byte_align(args[0]),
+                              conv_pe.byte_align(args[1]))
+    plans = _w4_plans(m, n, k, gs, args[0], args[1])
+    assert planned in plans
+    got = {}
+    for p in plans:
+        monkeypatch.setattr(conv_pe, "plan_w4", lambda *a, _p=p: _p)
+        before = _build.COUNTS.get(kernel, 0)
+        got[p] = conv_pe.matmul_int4_fused(*args, **kwargs)
+        assert _build.COUNTS[kernel] == before + 1
+        _check(got[p], want)
+    routes = {p.route for p in plans}
+    assert routes == ({"stream", "mma"} if gs % 32 == 0 else {"stream"})
+
+
+# (M, K, N, gs): every M the served paths give (1 and 4 slots decoding, 5,
+# 9 and 37 off the 4-row stream blocks and the 64-row tiles, 256 = a 4 x 64
+# prefill); group sizes 4, 32, 64, 128 and 1024; N off 16 (40: 8-byte
+# rows, 70: 2-byte, 33: bytes); qwen2's QKV and down and gemma2's down
+# projection at decode and prefill (K = 8960 / 9216: 140 / 144 groups in
+# three chunks; with N = 33, the three chunks take the scales and zeros
+# by halfs and the packed rows by bytes)
+W4_SHAPES = [(1, 96, 40, 4), (4, 1536, 2048, 64), (4, 8960, 1536, 64),
+             (4, 9216, 2304, 64), (5, 2048, 70, 32), (5, 96, 40, 32),
+             (9, 8960, 33, 64), (37, 192, 70, 64), (37, 1024, 33, 128),
+             (37, 2048, 96, 1024), (256, 8960, 1536, 64),
+             (256, 9216, 2304, 64), (256, 192, 40, 32)]
+
+
+@pytest.mark.parametrize("m,k,n,gs", W4_SHAPES)
 @pytest.mark.parametrize("out_kind", ["f32", "scalar", "vector"])
-def test_conv_pe_w4(dev, m, k, n, gs, out_kind):
-    """Plain int4 GEMM with bias: per-row a_scale, f32 or int8 out at a
-    scalar or a per-column scale (K=8960 runs nine staging chunks)."""
+def test_conv_pe_w4(dev, monkeypatch, m, k, n, gs, out_kind):
+    """Plain int4 GEMM with bias and relu on every plan: per-row a_scale,
+    f32 or int8 out at a scalar or a per-column scale."""
     rng = np.random.default_rng(m + k + n)
     a, q4 = _w4(rng, dev, m, k, n, gs)
     asc, bias = _f(rng, (m, 1), dev), _f(rng, (n,), dev, -1.0, 1.0)
     os = {"f32": None, "scalar": 0.0621,
           "vector": _f(rng, (1, n), dev, 0.02, 0.09)}[out_kind]
-    before = _build.COUNTS.get("conv_pe_w4", 0)
-    args = (a, q4.packed, asc, q4.scale, q4.zero, bias, "relu", os)
-    got = conv_pe.matmul_int4_fused(*args)
-    assert _build.COUNTS["conv_pe_w4"] == before + 1
-    _check(got, conv_pe.matmul_int4_fused_plain(*args))
+    _w4_each_plan(monkeypatch, "conv_pe_w4", m, n, k, gs,
+                  (a, q4.packed, asc, q4.scale, q4.zero, bias, "relu", os),
+                  {})
 
 
+@pytest.mark.parametrize("m,k,n,gs", [(4, 8960, 1536, 64),
+                                      (12, 1536, 1536, 64),
+                                      (256, 2048, 2304, 64),
+                                      (37, 128, 70, 32)])
 @pytest.mark.parametrize("res_dtype,mid,os", [
     (torch.float32, None, None), (torch.float32, 0.0377, None),
-    (torch.int8, 0.0377, 0.0519)])
-def test_conv_pe_w4_residual(dev, res_dtype, mid, os):
-    """The residual variant: the LM's f32 residual stream (dynamic chain or
-    static mid_scale qdq) and an int8 operand requantized."""
-    rng = np.random.default_rng(7)
-    m, k, n = 12, 1536, 1536
-    a, q4 = _w4(rng, dev, m, k, n, 64)
+    (torch.int8, 0.0377, 0.0519), (torch.int8, None, "vector")])
+def test_conv_pe_w4_residual(dev, monkeypatch, m, k, n, gs, res_dtype, mid,
+                             os):
+    """The residual variant on every plan: the LM's f32 residual stream
+    (dynamic chain or static mid_scale qdq) and an int8 operand requantized
+    at a scalar or per-column scale (qwen2's down projection, its O
+    projection off the 4-row blocks, gemma2's O at prefill, ragged N)."""
+    rng = np.random.default_rng(7 + m)
+    a, q4 = _w4(rng, dev, m, k, n, gs)
     r = (_q(rng, (m, n), dev) if res_dtype == torch.int8 else
          torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(dev))
+    if os == "vector":
+        os = _f(rng, (n,), dev, 0.03, 0.09)
     kw = dict(residual=r, res_scale=1.0 if mid is None else 0.031,
-              mid_scale=mid, add_act="none")
-    before = _build.COUNTS.get("conv_pe_w4_res", 0)
-    got = conv_pe.matmul_int4_fused(a, q4.packed, 0.0173, q4.scale, q4.zero,
-                                    None, "none", os, **kw)
-    assert _build.COUNTS["conv_pe_w4_res"] == before + 1
-    _check(got, conv_pe.matmul_int4_fused_plain(
-        a, q4.packed, 0.0173, q4.scale, q4.zero, None, "none", os, **kw))
+              mid_scale=mid, add_act="none" if mid is None else "relu")
+    _w4_each_plan(monkeypatch, "conv_pe_w4_res", m, n, k, gs,
+                  (a, q4.packed, 0.0173, q4.scale, q4.zero, None, "none", os),
+                  kw)
+
+
+def test_conv_pe_w4_refuses_plans_it_does_not_take(dev, monkeypatch):
+    """The kernel launches what the plan names or refuses it: tensor-core
+    tiles are 64 x 64 and need groups of a multiple of 32 K rows, stream
+    strips are 16 or 32 columns, and a chunk holds at most the K's groups."""
+    rng = np.random.default_rng(3)
+    a, q4 = _w4(rng, dev, 8, 96, 64, 4)
+    base = conv_pe.plan_w4(8, 64, 96, 4, 16, 16)
+    for bad in (base._replace(route="mma", bm=64, bn=64),
+                base._replace(bn=64), base._replace(bn=24),
+                base._replace(gc=25)):
+        monkeypatch.setattr(conv_pe, "plan_w4", lambda *args, _p=bad: _p)
+        with pytest.raises(RuntimeError):
+            conv_pe.matmul_int4_fused(a, q4.packed, 1.0, q4.scale, q4.zero)
+    a, q4 = _w4(rng, dev, 8, 96, 64, 32)
+    tile = [p for p in _w4_plans(8, 64, 96, 32, a, q4.packed)
+            if p.route == "mma"][0]
+    for bad in (tile._replace(bm=32), tile._replace(bn=32)):
+        monkeypatch.setattr(conv_pe, "plan_w4", lambda *args, _p=bad: _p)
+        with pytest.raises(RuntimeError):
+            conv_pe.matmul_int4_fused(a, q4.packed, 1.0, q4.scale, q4.zero)
 
 
 @pytest.mark.parametrize("dtype,p,trailing", [

@@ -454,6 +454,71 @@ def test_conv_pe_scratch_grows_per_stream():
 
 
 # ---------------------------------------------------------------------------
+# The int4 Conv PE's launch planner (pure Python)
+# ---------------------------------------------------------------------------
+
+# (M, N, K) of the w4a8 projections the served paths run: qwen2-1.5b's and
+# gemma2-2b's QKV, gate/up, O and down, at a decode step (4 slots) and a
+# prefill (4 x 64 tokens), group size 64
+W4_LM = [(2048, 1536), (17920, 1536), (1536, 1536), (1536, 8960),
+         (4096, 2304), (18432, 2304), (2304, 2048), (2304, 9216)]
+
+
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("n,k", W4_LM)
+def test_conv_pe_plan_w4_lm_shapes(m, n, k):
+    """plan_w4 at the LM's shapes: a decode step streams the weights, a
+    prefill runs 64 x 64 tensor-core tiles; the stream strips keep at least
+    half the SMs busy (16 columns at N = 1536: 96 blocks of 256 threads; the
+    8-column strips that cover every SM ran slower, scripts/conv_pe_probe.py
+    --w4), chunks of whole groups cover K, none empty and at most W4_CHUNK
+    bytes of packed weights, and a sub-task's quads divide the group's."""
+    gs = 64
+    p = conv_pe.plan_w4(m, n, k, gs, 16, 16)
+    assert (p.wa, p.wb) == (16, 16)
+    if m == 256:
+        assert p.route == "mma" and (p.bm, p.bn) == (64, 64)
+        assert p.gc == 0
+        return
+    assert p.route == "stream" and p.bm == 4 and p.bn in conv_pe.W4_BNS
+    assert -(-n // p.bn) >= conv_pe.SMS // 2
+    assert p.bn == 32 or -(-n // 32) < conv_pe.SMS   # the widest that fills
+    g = k // gs
+    assert (_cover(g, p.gc, -(-g // p.gc)) == 1).all()
+    # each group's gs / 2 rows of bn bytes and 16 bytes a column thread of
+    # padding
+    assert p.gc * (gs // 2 * p.bn + 16 * (p.bn // 16)) <= conv_pe.W4_CHUNK
+    assert p.gc <= conv_pe.W4_GC
+
+
+@pytest.mark.parametrize("gs", [4, 8, 20, 48, 64, 96, 1024])
+@pytest.mark.parametrize("m", [1, 37, 256])
+def test_conv_pe_plan_w4_group_sizes(gs, m):
+    """Every group size the wrapper takes has a plan: tensor-core tiles only
+    above W4_STREAM_MAX_M rows and where the groups are multiples of 32 K
+    rows (the k32 steps of a group end on its boundary), streaming
+    otherwise; a sub-task's quads divide the group's."""
+    k = gs * 40
+    p = conv_pe.plan_w4(m, 2048, k, gs, 16, 16)
+    mma = m > conv_pe.W4_STREAM_MAX_M and gs % 32 == 0
+    assert p.route == ("mma" if mma else "stream")
+    if not mma:
+        assert 1 <= p.gc <= min(40, conv_pe.W4_GC)
+
+
+def test_conv_pe_plan_w4_widths_and_refusals():
+    """Copy widths follow the rows and the pointers' alignment (ragged N
+    streams bytes); an empty product or a K off the groups is refused."""
+    p = conv_pe.plan_w4(4, 70, 96, 32, 4, 16)
+    assert (p.route, p.wa, p.wb) == ("stream", 4, 2)
+    p = conv_pe.plan_w4(256, 40, 1024, 1024, 16, 8)
+    assert (p.route, p.wa, p.wb) == ("mma", 16, 8)
+    for args in ((0, 64, 64, 32), (4, 64, 96, 64)):
+        with pytest.raises(ValueError):
+            conv_pe.plan_w4(*args, 16, 16)
+
+
+# ---------------------------------------------------------------------------
 # The float GEMM's planner and layout classifier (pure Python)
 # ---------------------------------------------------------------------------
 
