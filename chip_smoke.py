@@ -49,7 +49,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      streaming at a decode step, tensor-core tiles at a prefill), the paged
      gather and the flash attention at the shapes of one prefill and one
      decode step (timed per decode step, and per prefill; the int4 GEMMs
-     with the L2 flushed before every repeat, as the int8 ones), then 8
+     with the L2 flushed before every repeat, as the int8 ones; every
+     flash call's block plan logged and its output bitwise equal to the
+     ref backend's chunked prefill attention, or the phase fails), then 8
      requests of 16-64 prompt tokens and 32 new tokens
      each with the counters zeroed around them (56 / 56 / 28 launches per
      decode step, the paged gather one a layer for k and v; 56 / 56 / 0
@@ -66,10 +68,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      vocab 256000, attention softcap 50, final softcap 30, post-norms,
      scaled embeddings), seeded weights, on the qwen2 cell's engine and
      trace: the flash attention held within ATTN_TOL of max|plain| against
-     its plain version and timed at one gemma2 prefill and at a 2048-token
-     shape; the int4 Conv PE (plans logged; timed cold per decode step and
-     per prefill), the MISC add and the paged gather held bitwise at
-     gemma2's shapes; the trace with the counters zeroed around
+     its plain version and timed at one gemma2 prefill (every call bitwise
+     equal to the ref backend's chunked attention, or the phase fails) and
+     at two 2048-token shapes (gemma2's heads with its softcap, qwen2's
+     without, where SDPA gives a library time; bitwise count logged); the
+     int4 Conv PE (plans logged; timed cold per decode step and per
+     prefill) and the MISC add (timed per decode step and per prefill)
+     held bitwise at gemma2's shapes, the paged gather too; the trace with
+     the counters zeroed around
      it (4 int4 GEMMs and 2 misc_add on every layer, paged_gather (k and v
      in one launch) and flash_attention on the 13 global layers only), 3
      steady traces, one profiled prefill and decode step; ids
@@ -83,7 +89,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      ServeEngine(quant="w8a8", backend="cuda", batch_size=4, max_seq=128,
      prefill_len=64, decode_burst=4) (dense; no calibration): the kernel
      phases of the causal temporal conv (dwc1d, per prefill, against
-     F.conv1d + F.silu) and of the int8 Conv PE at the four mamba
+     F.conv1d + F.silu; its x must be the strided x half of in_proj's
+     output, read in place: one call through ops, traced, runs the dwc1d
+     kernel and no copy) and of the int8 Conv PE at the four mamba
      projection shapes (per decode step and per prefill, per-token
      a_scale, plans logged, L2 flushed before every repeat), then the
      8-request trace with the counters zeroed around it
@@ -209,8 +217,9 @@ GEMMA_PER_LAYER = {
 # the ring wrap: the reduced gemma2 (window 64); prompts + new tokens cross it
 RING = dict(batch=2, max_seq=128, prefill_len=48, burst=4, page=16,
             requests=4, new_tokens=32, calib=(2, 48), prompt_lens=(40, 48))
-# the longer attention shape (B, Hq, Hkv, L = S, D, softcap)
-ATTN_LONG = (1, 8, 4, 2048, 256, 50.0)
+# the longer attention shapes (B, Hq, Hkv, L = S, D, softcap): gemma2's
+# heads (no library call applies the softcap) and qwen2's (SDPA times it)
+ATTN_LONG = ((1, 8, 4, 2048, 256, 50.0), (1, 12, 2, 2048, 128, 0.0))
 # the flash attention against its plain version: |err| <= ATTN_TOL x
 # max|plain| (f32 sums in another order; one softmax against chunks)
 ATTN_TOL = 1e-5
@@ -282,9 +291,9 @@ def l2_flush(torch):
     """(flush, its kernel names): a read of 128 MB, more than the H100's
     50 MB L2, so the next call finds its operands in HBM (a read leaves no
     dirty lines to write back during that call).  Made once; the names are
-    read off a trace of the flush alone, taken again (up to four traces)
-    while the profiler loses its events: with no names, cuda_ms would
-    count the flush as the call's device time."""
+    read off a trace of the flush alone (five of them), taken again (up to
+    eight traces) while the profiler loses its events: with no names,
+    cuda_ms would count the flush as the call's device time."""
     from torch.profiler import ProfilerActivity, profile
     if not _FLUSH:
         buf = torch.ones(32 * 2**20, dtype=torch.int32, device="cuda")
@@ -294,15 +303,16 @@ def l2_flush(torch):
         flush()
         torch.cuda.synchronize()
         keys = set()
-        for _ in range(4):
+        for _ in range(8):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                flush()
+                for _ in range(5):
+                    flush()
                 torch.cuda.synchronize()
             keys = {e.key for e in prof.key_averages() if _self_us(e) > 0}
             if keys:
                 break
         if not keys:
-            fail("torch.profiler saw no kernel of the L2 flush in four "
+            fail("torch.profiler saw no kernel of the L2 flush in eight "
                  "traces")
         _FLUSH.update(fn=flush, keys=keys)
     return _FLUSH["fn"], _FLUSH["keys"]
@@ -1232,52 +1242,95 @@ def lm_kernel_phases(torch, engine, prompts, names, results, label,
     return calls
 
 
+def log_flash_plans(label, calls):
+    """The flash attention's block (kernels/flash_attn.plan: rows, threads,
+    grid, shared memory) at each shape among `calls`, with its call
+    count."""
+    from repro_torch.kernels import flash_attn
+    shapes = {}
+    for args, _ in calls:
+        q, k = args[0], args[1]
+        key = tuple(q.shape[:2]) + (k.shape[1], q.shape[2], k.shape[2],
+                                    q.shape[3], str(q.dtype))
+        shapes[key] = shapes.get(key, 0) + 1
+    for (b, hq, hkv, l, s, d, dt), count in sorted(shapes.items()):
+        p = flash_attn.plan(b, hq, hkv, l, s, d)
+        log(f"plan flash_attention {label} B={b} Hq={hq} Hkv={hkv} L={l} "
+            f"S={s} D={d} {dt} x{count}: {p.rows} rows x {p.threads} "
+            f"threads a block, {p.blocks} blocks, chunk {p.chunk}, "
+            f"{p.smem} B shared")
+
+
+def blocked_same(torch, calls) -> int:
+    """How many of the flash attention's `calls` give the same bits as the
+    ref backend's prefill attention (models/layers.py::flash_attention on
+    the same q / k / v, as the compiled prefill feeds it)."""
+    from repro_torch.models import layers as L
+    same = 0
+    for args, kwargs in calls:
+        q, k, v = args[:3]
+        b, hq, l, d = q.shape
+        hkv = k.shape[1]
+        got = _wrappers()["flash_attention"][0](*args, **kwargs)
+        blocked = L.flash_attention(
+            q.reshape(b, hkv, hq // hkv, l, d).permute(0, 3, 1, 2, 4),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+            causal=kwargs.get("causal", True),
+            logit_softcap=kwargs["softcap"])
+        same += bool(torch.equal(got, blocked.permute(0, 2, 3, 1, 4)
+                                 .reshape(b, hq, l, d)))
+    return same
+
+
 def attention_phase(torch, calls, label, want_calls):
     """flash_attention's calls of one prefill: each held within ATTN_TOL of
-    max|plain| against its plain version, timed per prefill, and compared
-    bit for bit with the attention the ref backend's prefill runs instead
-    (models/layers.py::flash_attention on the same q / k / v)."""
-    from repro_torch.models import layers as L
+    max|plain| against its plain version, timed per prefill, and held bit
+    for bit against the attention the ref backend's prefill runs instead
+    (the int8 edge after it, and the served ids, depend on that)."""
     if len(calls) != want_calls:
         fail(f"flash_attention ({label}): {len(calls)} calls in one prefill, "
              f"want {want_calls}")
+    log_flash_plans(label, calls)
     with torch.inference_mode():
         r = kernel_phase(torch, "flash_attention", calls, reps=5,
                          plain_reps=5, tol=ATTN_TOL)
-        same = 0
-        for args, kwargs in calls:
-            q, k, v = args[:3]
-            b, hq, l, d = q.shape
-            hkv = k.shape[1]
-            got = _wrappers()["flash_attention"][0](*args, **kwargs)
-            blocked = L.flash_attention(
-                q.reshape(b, hkv, hq // hkv, l, d).permute(0, 3, 1, 2, 4),
-                k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=True,
-                logit_softcap=kwargs["softcap"])
-            same += bool(torch.equal(got, blocked.permute(0, 2, 3, 1, 4)
-                                     .reshape(b, hq, l, d)))
+        same = blocked_same(torch, calls)
     log_kernel(f"flash_attention ({label}, {tuple(calls[0][0][0].shape)} "
                f"softcap {calls[0][1]['softcap']})", r, per="prefill")
     log(f"flash_attention ({label}): {same} of {len(calls)} calls bitwise "
         f"equal to the ref backend's prefill attention (models/layers.py)")
+    if same != len(calls):
+        fail(f"flash_attention ({label}): {len(calls) - same} of "
+             f"{len(calls)} calls differ from the ref backend's prefill "
+             f"attention")
     return r
 
 
 def attention_long(torch):
-    """The flash attention at one longer shape (ATTN_LONG, seeded inputs),
-    held and timed like a prefill's calls."""
-    b, hq, hkv, l, d, cap = ATTN_LONG
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda") * sc
-               for shape, sc in (((b, hq, l, d), 3.0), ((b, hkv, l, d), 3.0),
-                                 ((b, hkv, l, d), 1.0)))
-    with torch.inference_mode():
-        r = kernel_phase(torch, "flash_attention",
-                         [((q, k, v), dict(causal=True, softcap=cap))],
-                         reps=5, plain_reps=5, tol=ATTN_TOL)
-    log_kernel(f"flash_attention (B {b}, {hq}/{hkv} heads, L = S = {l}, D "
-               f"{d}, softcap {cap})", r, per="call")
-    return r
+    """The flash attention at each longer shape (ATTN_LONG, seeded
+    inputs), held and timed like a prefill's calls, its bits compared with
+    the ref backend's chunked attention (logged).  Returns the worst
+    error."""
+    worst = 0.0
+    for b, hq, hkv, l, d, cap in ATTN_LONG:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") * sc
+                   for shape, sc in (((b, hq, l, d), 3.0),
+                                     ((b, hkv, l, d), 3.0),
+                                     ((b, hkv, l, d), 1.0)))
+        calls = [((q, k, v), dict(causal=True, softcap=cap))]
+        log_flash_plans("long", calls)
+        with torch.inference_mode():
+            r = kernel_phase(torch, "flash_attention", calls, reps=5,
+                             plain_reps=5, tol=ATTN_TOL)
+            same = blocked_same(torch, calls)
+        log_kernel(f"flash_attention (B {b}, {hq}/{hkv} heads, L = S = {l}, "
+                   f"D {d}, softcap {cap})", r, per="call")
+        log(f"flash_attention (L = S = {l}, D {d}): {same} of 1 calls "
+            f"bitwise equal to the ref backend's chunked attention")
+        worst = max(worst, r["max_abs_err"])
+        del q, k, v, calls
+    return worst
 
 
 def traced(torch, fn):
@@ -1516,7 +1569,7 @@ def gemma2_path(torch, results, add):
     from repro_torch import configs
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
-    long_r = attention_long(torch)
+    long_err = attention_long(torch)
     t0 = time.perf_counter()
     arch = configs.get_arch(GEMMA["arch"])
     params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
@@ -1536,10 +1589,11 @@ def gemma2_path(torch, results, add):
     calls = lm_kernel_phases(torch, engine, prompts,
                              ("conv_pe_w4", "misc_add", "paged_gather"), None,
                              arch.name, GEMMA_PER_LAYER, GEMMA,
-                             timed=("conv_pe_w4",), cold=("conv_pe_w4",))
+                             timed=("conv_pe_w4", "misc_add"),
+                             cold=("conv_pe_w4",))
     r = attention_phase(torch, calls["flash_attention"], arch.name,
                         n_global(arch))
-    r["max_abs_err"] = max(r["max_abs_err"], long_r["max_abs_err"])
+    r["max_abs_err"] = max(r["max_abs_err"], long_err)
     results["flash_attention"] = r
     del calls
     ids, counts, _ = lm_serve(torch, engine, prompts, label,
@@ -1667,10 +1721,12 @@ def ssm_kernel_phases(torch, engine, prompts, results):
         fail(f"dwc1d: {len(conv)} calls of shapes "
              f"{sorted({tuple(a[0].shape) for a, _ in conv})}, want "
              f"{layers} of one prefill's")
+    dwc1d_in_place(torch, engine, conv)
     with torch.inference_mode():
         r = kernel_phase(torch, "dwc1d", conv)
     results["dwc1d"] = r
-    log_kernel("dwc1d (falcon-mamba)", r, per="prefill")
+    log_kernel("dwc1d (falcon-mamba, x read in place from in_proj's "
+               "output)", r, per="prefill")
     log_plans("falcon-mamba", calls)
     groups = {}
     for a, k in calls["conv_pe"]:
@@ -1690,6 +1746,57 @@ def ssm_kernel_phases(torch, engine, prompts, results):
     if len(groups) != 8:
         fail(f"conv_pe (falcon-mamba): {len(groups)} shapes, want 4 "
              f"projections x decode and prefill")
+
+
+def dwc1d_in_place(torch, engine, conv):
+    """The causal conv reads its x where in_proj wrote it: every recorded
+    call's x is the strided x half of in_proj's rows (not a copy), the
+    plan is logged, one call through ops.dwc1d_causal allocates its output
+    and nothing else (a copy of x would allocate a second tensor), and the
+    kernels a trace of ten such calls sees are dwc1d kernels only (taken
+    again, up to eight traces, while the profiler loses its events)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import dwc_pe, ops
+    x, w, bias = conv[0][0][:3]
+    b, l, c = x.shape
+    if any(a[0].is_contiguous() or a[0].stride() != (l * 2 * c, 2 * c, 1)
+           for a, _ in conv):
+        fail(f"dwc1d: x is not the in-place slice of in_proj's rows "
+             f"(strides {sorted({a[0].stride() for a, _ in conv})})")
+    p = dwc_pe.plan_dwc1d(b, l, c, w.shape[0], dwc_pe._aligned_rows(x))
+    log(f"plan dwc1d falcon-mamba B={b} L={l} C={c} k={w.shape[0]} strides "
+        f"{x.stride()} x{len(conv)}: {p.route}, {p.steps} steps a thread, "
+        f"{p.blocks} blocks")
+
+    def call():
+        return ops.dwc1d_causal(x, w, bias, "silu", engine.eng)
+
+    def allocs():
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        a0 = allocs()
+        call()
+        torch.cuda.synchronize()
+        n = allocs() - a0
+        if n != 1:
+            fail(f"dwc1d through ops: {n} allocations, want the output's "
+                 f"alone (no copy of x)")
+        names = set()
+        for _ in range(8):              # the profiler loses events at times
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages() if _self_us(e) > 0}
+            if names:
+                break
+    if not names:
+        fail("dwc1d through ops: torch.profiler saw no kernel in eight traces")
+    if any("dwc1d" not in k for k in names):
+        fail(f"dwc1d through ops: kernels {sorted(names)}, want dwc1d alone")
+    log(f"dwc1d through ops on in_proj's slice: 1 allocation (the output), "
+        f"kernels seen {sorted(k[:60] for k in names)}, no copy")
 
 
 def ssm_path(torch, results, add):

@@ -464,15 +464,13 @@ def empty_lib():
     """ctypes library with empty_tc(grid, stream), compiled from EMPTY_SRC
     against csrc/conv_pe_f.cu's constants (nvcc, the port's flags)."""
     import ctypes
+    import kernel_variants
     from repro_torch.kernels import _build
     _build.BUILD.mkdir(exist_ok=True)
     src = _build.BUILD / "probe_empty.cu"
-    out = _build.BUILD / "probe_empty.so"
     src.write_text(EMPTY_SRC)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-o", str(out), str(src)], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = kernel_variants.finish(
+        *kernel_variants.start(_build, "probe_empty", src), "the empty kernel")
     lib.empty_tc.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.empty_tc.restype = ctypes.c_int
     return lib
@@ -765,35 +763,11 @@ W4_PARTS_AT = (("qwen2 gate/up", 4, 17920, 1536),
 def w4_parts(torch, np, smoke, conv_pe) -> None:
     """Each W4_PARTS variant of the int4 GEMM built, bound in place of the
     library and timed cold on the planned plan at W4_PARTS_AT."""
-    import ctypes
+    import kernel_variants
     from repro_torch.core.quant import pack_int4
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "conv_pe_w4.cu").read_text()
-    jobs = []
-    for i, (what, edits) in enumerate(W4_PARTS):
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise SystemExit(f"conv_pe_probe: {old!r} is not in the "
-                                 "source once")
-            text = text.replace(old, new)
-        cu = _build.CSRC / f"w4_probe_{i}.cu"
-        cu.write_text(text)
-        out = _build.BUILD / f"w4_probe_{i}.so"
-        _build.BUILD.mkdir(exist_ok=True)
-        jobs.append((what, cu, out, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for what, cu, out, proc in jobs:
-        log_text, _ = proc.communicate()
-        cu.unlink()
-        if proc.returncode:
-            raise SystemExit(f"conv_pe_probe: nvcc failed for {what}:\n"
-                             f"{log_text}")
-        lib = ctypes.CDLL(str(out))
-        conv_pe._bind_w4(lib)
-        libs.append((what, lib))
+    libs = kernel_variants.edited(_build, "conv_pe_w4.cu", W4_PARTS,
+                                  "w4_probe", conv_pe._bind_w4)
     rng = np.random.default_rng(5)
     cases = []
     for tag, m, n, k in W4_PARTS_AT:
@@ -803,18 +777,13 @@ def w4_parts(torch, np, smoke, conv_pe) -> None:
             np.float32)).cuda(), W4_GS)
         cases.append((f"{tag} M={m}", (a, q4.packed, 0.0173, q4.scale,
                                        q4.zero, None, "relu", 0.0621)))
-    saved = _build._libs.get("conv_pe_w4")
-    try:
-        for what, lib in libs:
-            _build._libs["conv_pe_w4"] = lib
+    for what, lib in libs:
+        with kernel_variants.bound(_build, "conv_pe_w4", lib):
             times = [smoke.cuda_ms(
                 torch, lambda: conv_pe.matmul_int4_fused(*args), REPS,
                 cold=True)[0] for _, args in cases]
-            log(f"w4 parts, cut {what}: " + ", ".join(
-                f"{tag} {t:.4f} ms" for (tag, _), t in zip(cases, times)))
-    finally:
-        if saved is not None:
-            _build._libs["conv_pe_w4"] = saved
+        log(f"w4 parts, cut {what}: " + ", ".join(
+            f"{tag} {t:.4f} ms" for (tag, _), t in zip(cases, times)))
 
 
 def main() -> int:

@@ -129,50 +129,20 @@ def stem(torch, np, smoke, low_channel):
 def parts(torch, np, smoke, _build, low_channel):
     """Each PARTS variant of the stem kernel built, bound in place of the
     library, and timed at both stems' planned tiles."""
-    import ctypes
-    import subprocess
-    src = (_build.CSRC / "low_channel.cu").read_text()
-    jobs = []
-    for i, (what, edits) in enumerate(PARTS):
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise SystemExit(f"stem_probe: {old!r} is not in the source "
-                                 "once")
-            text = text.replace(old, new)
-        cu = _build.CSRC / f"stem_probe_{i}.cu"
-        cu.write_text(text)
-        out = _build.BUILD / f"stem_probe_{i}.so"
-        _build.BUILD.mkdir(exist_ok=True)
-        jobs.append((what, cu, out, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for what, cu, out, proc in jobs:
-        log_text, _ = proc.communicate()
-        cu.unlink()
-        if proc.returncode:
-            raise SystemExit(f"stem_probe: nvcc failed for {what}:\n"
-                             f"{log_text}")
-        lib = ctypes.CDLL(str(out))
-        low_channel._bind(lib)
-        libs.append((what, lib))
+    import kernel_variants
+    libs = kernel_variants.edited(_build, "low_channel.cu", PARTS,
+                                  "stem_probe", low_channel._bind)
     cases = [stem_case(torch, np, 4, 229, 7, 64, 2, True),
              stem_case(torch, np, 4, 225, 3, 32, 2, False)]
-    saved = _build._libs.get("low_channel")
-    try:
-        for what, lib in libs:
-            _build._libs["low_channel"] = lib
+    for what, lib in libs:
+        with kernel_variants.bound(_build, "low_channel", lib):
             times = []
             for args, kw in cases:
                 times.append(smoke.cuda_ms(torch, lambda: low_channel
                                            .low_channel_conv(*args, **kw),
                                            REPS)[0])
-            log(f"stem parts, cut {what}: resnet50 max tail {times[0]:.4f} "
-                f"ms, mobilenetv2 {times[1]:.4f} ms")
-    finally:
-        if saved is not None:
-            _build._libs["low_channel"] = saved
+        log(f"stem parts, cut {what}: resnet50 max tail {times[0]:.4f} "
+            f"ms, mobilenetv2 {times[1]:.4f} ms")
 
 
 def gather(torch, smoke, flash_attn):

@@ -6,11 +6,14 @@ Wrappers of the CUDA kernels in csrc/dwc_pe.cu:
     `_dwc2d_kernel` (:40): the CNNs' k x k depthwise convs, int8.
   * `dwc1d_causal` replaces src/repro/kernels/dwc_pe.py::dwc1d_causal,
     kernel body `_dwc1d_kernel` (:157): the mamba mixer's causal temporal
-    conv, f32 in and out, act none or silu.
+    conv, f32 in and out, act none or silu.  It reads x in place from a
+    view whose channels are contiguous (the mixer hands it the x half of
+    in_proj's output), and `plan_dwc1d` picks its route.
 
 Bound on the H100 and the design's answer: see the note at the top of
 csrc/dwc_pe.cu (no channel reduction, so bytes-bound; channels innermost,
-accumulator and epilogue in registers).
+accumulator and epilogue in registers; the 1-D conv's taps slide through
+registers over four channels and two steps a thread).
 
 The plain versions are ref.dwc2d and ref.dwc1d_causal.  ref.dwc2d
 multiplies the scales in ref.py's order (acc * a_scale * w_scale); the
@@ -20,7 +23,8 @@ code.  The kernel follows ref.py.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,7 +38,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dwc_pe_dwc2d.argtypes = [_V, _V, _V, _V, _F, _V] + [_I] * 10 + [
         _F, _V]
     lib.dwc_pe_dwc2d.restype = _I
-    lib.dwc_pe_dwc1d.argtypes = [_V, _V, _V, _V] + [_I] * 5 + [_V]
+    lib.dwc_pe_dwc1d.argtypes = ([_V, _V, _V, _V] + [_I] * 4
+                                 + [ctypes.c_longlong] * 2 + [_I] * 2 + [_V])
     lib.dwc_pe_dwc1d.restype = _I
 
 
@@ -43,6 +48,38 @@ dwc1d_causal_plain = ref.dwc1d_causal
 
 # the dwc1d kernel's activations (the mamba mixer's silu, RG-LRU's none)
 _DWC1D_ACTS = {"none": 0, "silu": 1}
+
+DWC1D_THREADS = 256        # threads a block, both routes (csrc THREADS)
+DWC1D_VEC_K = 4            # the float4 route's taps, the mamba mixers' (VK)
+DWC1D_VEC_STEPS = 2        # steps a thread on the float4 route (csrc VT)
+DWC1D_SCALAR_STEPS = 8     # steps a thread on the scalar route (csrc TCH)
+
+
+class PlanDwc1d(NamedTuple):
+    route: str             # "vec4": four channels a thread; "scalar": one
+    steps: int             # consecutive time steps a thread
+    blocks: int            # blocks of DWC1D_THREADS in the grid
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_dwc1d(b: int, l: int, c: int, k: int,
+               aligned: bool = True) -> PlanDwc1d:
+    """The launch of dwc1d at x [B, L, C], k taps.  `aligned`: x's first
+    element and both of its strides keep every float4 on 16 bytes.  The
+    float4 route takes C % 4 == 0, k == DWC1D_VEC_K and an aligned x; any
+    other shape takes the scalar route."""
+    if c % 4 == 0 and k == DWC1D_VEC_K and aligned:
+        t, lanes, route = DWC1D_VEC_STEPS, 4, "vec4"
+    else:
+        t, lanes, route = DWC1D_SCALAR_STEPS, 1, "scalar"
+    return PlanDwc1d(route, t, -(-b * -(-l // t) * (c // lanes)
+                                 // DWC1D_THREADS))
+
+
+def _aligned_rows(x: torch.Tensor) -> bool:
+    """x [B, L, C] f32 keeps every group of four channels on 16 bytes."""
+    return (x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+            and x.stride(1) % 4 == 0)
 
 
 def dwc2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -86,13 +123,20 @@ def dwc2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 def dwc1d_causal(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, act: str = "none",
                  out_dtype=torch.float32) -> torch.Tensor:
-    """Causal depthwise temporal conv.  x f32 [B, L, C]; w f32 [k, C];
-    bias f32 [C] or None; act "none" or "silu".  Returns f32 [B, L, C]."""
+    """Causal depthwise temporal conv.  x f32 [B, L, C], any strides with
+    the channels contiguous (a column slice of a wider row reads in
+    place); w f32 [k, C]; bias f32 [C] or None; act "none" or "silu".
+    Returns a contiguous f32 [B, L, C]."""
     if not x.is_cuda:
         return dwc1d_causal_plain(x, w, bias, act, out_dtype=out_dtype)
+    if x.dtype != torch.float32 or x.ndim != 3:
+        raise ValueError(f"x: expected a float32 [B, L, C], got {x.dtype} "
+                         f"{tuple(x.shape)}")
     b, l, c = x.shape
     k = w.shape[0]
-    require(x, "x", torch.float32)
+    if c > 1 and x.stride(2) != 1:
+        raise ValueError(f"x: the channels must be contiguous, got strides "
+                         f"{x.stride()}")
     require(w, "w", torch.float32, (k, c))
     if bias is not None:
         require(bias, "bias", torch.float32, (c,))
@@ -101,11 +145,13 @@ def dwc1d_causal(x: torch.Tensor, w: torch.Tensor,
     if act not in _DWC1D_ACTS:
         raise ValueError(f"dwc1d kernel: activation {act!r} not in "
                          f"{sorted(_DWC1D_ACTS)}")
-    out = torch.empty_like(x)
+    p = plan_dwc1d(b, l, c, k, _aligned_rows(x))
+    out = torch.empty((b, l, c), dtype=torch.float32, device=x.device)
     lib = _build.library("dwc_pe", _bind)
     err = lib.dwc_pe_dwc1d(x.data_ptr(), w.data_ptr(), ptr(bias),
-                           out.data_ptr(), b, l, c, k, _DWC1D_ACTS[act],
-                           _build.stream_ptr(x))
+                           out.data_ptr(), b, l, c, k, x.stride(0),
+                           x.stride(1), int(p.route == "vec4"),
+                           _DWC1D_ACTS[act], _build.stream_ptr(x))
     _build.check(err, "dwc1d")
     _build.count("dwc1d")
     return out

@@ -19,11 +19,14 @@ each beside its plain PyTorch version:
     kernel.
 
 Bounds on the H100 and the designs' answers: see the notes at the top of
-the two CUDA sources.  The attention kernel agrees with its plain version
-here (`ref.attention`, one softmax over all keys) to f32 rounding, and it
-keeps the op order of the plain chunked prefill attention that the ref
-backend runs (models/layers.py::flash_attention), so that the int8 edge
-after it, and the served ids, do not move between the backends.
+the two CUDA sources.  `plan(b, hq, hkv, l, s, d)` picks the attention
+kernel's block: the query rows it holds (of one KV group's heads) and its
+threads, and computes its shared memory.  The attention kernel agrees
+with its plain version here (`ref.attention`, one softmax over all keys)
+to f32 rounding, and it keeps the op order of the plain chunked prefill
+attention that the ref backend runs (models/layers.py::flash_attention),
+so that the int8 edge after it, and the served ids, do not move between
+the backends.
 
 On a CUDA tensor a wrapper checks its operands and launches its kernel or
 raises; on CPU tensors it runs the plain version.
@@ -31,6 +34,8 @@ raises; on CPU tensors it runs the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,9 +56,79 @@ def kv_chunk(s: int) -> int:
     return min(KV_CHUNK, -(-s // 128) * 128)
 
 
+SMS = 132                  # the H100 SXM's streaming multiprocessors
+SMEM_MAX = 232448          # a block's shared memory on the H100
+# the kernel's blocks (rows a block, threads), most rows first; a block's
+# rows are flat rows pos * G + g of one KV group's G query heads
+FLASH_BLOCKS = ((32, 256), (16, 128), (8, 64))
+FLASH_STAGES = 3           # slots of the K / V ring (csrc STAGES)
+# a grid of at least this many blocks counts as filling the SMs: at
+# gemma2's prefill 16 rows a block (128 blocks, 4 SMs idle) beat 8 rows
+# (256 blocks), and at qwen2's 32 rows (96 blocks) lost to 16 (192)
+# (scripts/attn_probe.py)
+FLASH_MIN_BLOCKS = SMS * 7 // 8
+
+
+class PlanFlash(NamedTuple):
+    rows: int              # flat query rows a block
+    threads: int
+    chunk: int             # keys a softmax chunk (kv_chunk(S))
+    blocks: int            # the grid: B x Hkv x row tiles
+    smem: int              # bytes of dynamic shared memory
+
+
+def _key_lanes(threads: int) -> int:
+    """Threads across a score tile's keys (csrc txs_of); 4 keys each."""
+    return 32 if threads >= 256 else 16
+
+
+def _block_ok(d: int, rows: int, threads: int) -> bool:
+    """The kernel's thread layouts divide `rows` (csrc tile_ok): the scores
+    threads / key lanes rows a pass, p @ v threads / min(key lanes, D / 4)."""
+    lanes = _key_lanes(threads)
+    return (threads % 64 == 0 and rows % (threads // lanes) == 0
+            and rows % (threads // min(lanes, d // 4)) == 0)
+
+
+def flash_smem(d: int, rows: int, threads: int, chunk: int) -> int:
+    """Bytes of the kernel's dynamic shared memory (csrc smem_floats): a
+    ring of FLASH_STAGES slots, each an f32 K slab [BK][DK + 4] (a score
+    tile of BK = 4 x key lanes keys, DK = min(D, 4096 / BK) dims) or V slab
+    [4096 / D (64 at D <= 64)][D + 4], the Q tile [rows][D + 4], the chunk's
+    scores [rows][chunk + 8] and three f32 a row."""
+    bk = 4 * _key_lanes(threads)
+    dk = min(d, 4096 // bk)
+    bv = 64 if d <= 64 else 4096 // d
+    slot = max(bk * (dk + 4), bv * (d + 4))
+    return 4 * (FLASH_STAGES * slot + rows * (d + 4) + rows * (chunk + 8)
+                + 3 * rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, hq: int, hkv: int, l: int, s: int, d: int) -> PlanFlash:
+    """The attention kernel's block at q [B, Hq, L, D], k / v [B, Hkv, S,
+    D]: of the blocks the head dim takes that fit in shared memory, the one
+    with the most rows (a staged K / V slab serves them all, and a thread's
+    micro-tiles are largest) whose grid still has FLASH_MIN_BLOCKS blocks;
+    where none does, the one with the fewest rows (the most blocks)."""
+    chunk = kv_chunk(s)
+    fits = [(r, t) for r, t in FLASH_BLOCKS
+            if _block_ok(d, r, t) and flash_smem(d, r, t, chunk) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"no flash-attention block fits head_dim {d} at "
+                         f"chunk {chunk}")
+    g_rows = (hq // hkv) * l
+    for rows, threads in fits:
+        blocks = b * hkv * -(-g_rows // rows)
+        if blocks >= FLASH_MIN_BLOCKS:
+            break
+    return PlanFlash(rows, threads, chunk, blocks,
+                     flash_smem(d, rows, threads, chunk))
+
+
 def _bind_attention(lib: ctypes.CDLL) -> None:
     lib.flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
         + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
 
@@ -103,12 +178,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and l > s:
         raise ValueError(f"causal attention with L={l} > S={s} leaves "
                          "query rows without a key")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    p = plan(b, hq, hkv, l, s, d)
     inv = float(np.float32(1.0) / np.float32(softcap)) if softcap > 0 else 0.0
     out = torch.empty((b, hq, l, d), dtype=torch.float32, device=q.device)
     err = _build.library("flash_attn", _bind_attention).flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        l, s, d, kv_chunk(s), int(q.dtype == torch.bfloat16), d ** -0.5,
-        float(softcap), inv, int(causal), _build.stream_ptr(q))
+        l, s, d, p.chunk, p.rows, p.threads, p.smem,
+        int(q.dtype == torch.bfloat16), d ** -0.5, float(softcap), inv,
+        int(causal), _build.stream_ptr(q))
     _build.check(err, "flash_attention")
     _build.count("flash_attention")
     return out

@@ -477,10 +477,10 @@ def dwc1d_causal(x: torch.Tensor, w: torch.Tensor,
                  cfg: EngineConfig) -> torch.Tensor:
     """Causal temporal depthwise conv: x [B, L, C] float, w [k, C], out in
     x's dtype.  The reference pads C to its 128-lane width for the Pallas
-    kernel; the CUDA kernel takes any C."""
+    kernel; the CUDA kernel takes any C, and reads a view whose channels
+    are contiguous (the mixer's slice of in_proj's output) in place."""
     if _kernels(cfg):
-        return dwc_pe.dwc1d_causal(x.contiguous(), w, bias, act,
-                                   out_dtype=x.dtype)
+        return dwc_pe.dwc1d_causal(x, w, bias, act, out_dtype=x.dtype)
     return ref.dwc1d_causal(x, w, bias, act, out_dtype=x.dtype)
 
 

@@ -12,7 +12,12 @@ stem K off 32 and OC off its 64-channel block, pooled tiles off the plan's);
 every output must equal the plain version bit for bit, except the flash
 attention's and the float GEMM's (K = 8960 among its shapes, f32 and bf16,
 every act, and its gradient), which agree with their plain versions to
-f32 rounding (the float GEMM at bf16 output to one bf16 ulp).  The float
+f32 rounding (the float GEMM at bf16 output to one bf16 ulp); the flash
+attention also equals the ref backend's chunked prefill attention bit for
+bit at the served prefills and at two 1024-key chunks, and its shapes
+reach every block its planner picks.  The causal 1-D conv reads strided
+and misaligned column slices of wider rows on every route its planner
+picks.  The float
 GEMM's cases reach both routes: the bf16 tensor-core tiles (every operand
 layout, split and not, the act in the tiles or in the reduction pass,
 ragged M, N and K) and the FFMA kernel (f32, and bf16 rows off 16
@@ -472,6 +477,50 @@ def test_dwc1d_causal(dev, b, l, c, k, act, bias):
         dwc_pe.dwc1d_causal(x, w, bs, "relu")
 
 
+# (B, L, C, k, offset): x the columns [offset, offset + C) of in_proj-style
+# rows [B, L, 2C]; offset 0 with k = 4 is the mamba mixer's view (float4
+# route); k 2 / 3 / 5, offset 1 (misaligned) and C = 33 (off four channels)
+# take the scalar route
+DWC1D_VIEWS = [(4, 64, 8192, 4, 0), (3, 17, 96, 4, 0), (2, 9, 96, 2, 0),
+               (2, 9, 96, 3, 0), (2, 9, 96, 5, 0), (4, 64, 8192, 4, 1),
+               (2, 12, 33, 4, 0), (2, 12, 40, 3, 1)]
+
+
+@pytest.mark.parametrize("b,l,c,k,offset", DWC1D_VIEWS)
+def test_dwc1d_causal_strided_view(dev, b, l, c, k, offset):
+    """The causal conv reads a column slice of wider rows in place (no
+    copy: the wrapper takes the view's strides) on the route its planner
+    picks, bit for bit with the plain version on the same view."""
+    rng = np.random.default_rng(b + l + c + offset)
+    rows = torch.from_numpy(rng.normal(size=(b, l, 2 * c)).astype(
+        np.float32)).to(dev)
+    x = rows[..., offset:offset + c]
+    assert not x.is_contiguous()
+    w = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)).to(dev)
+    bs = _f(rng, (c,), dev, -1.0, 1.0)
+    p = dwc_pe.plan_dwc1d(b, l, c, k, dwc_pe._aligned_rows(x))
+    assert p.route == ("vec4" if offset == 0 and c % 4 == 0 and k == 4
+                       else "scalar")
+    before = _build.COUNTS.get("dwc1d", 0)
+    got = dwc_pe.dwc1d_causal(x, w, bs, "silu")
+    assert _build.COUNTS["dwc1d"] == before + 1
+    assert got.is_contiguous()
+    _check(got, dwc_pe.dwc1d_causal_plain(x, w, bs, "silu"))
+
+
+def test_dwc1d_routes_covered():
+    """DWC1D_VIEWS launch both routes, and the scalar route at k below and
+    above the float4 route's 4, on aligned and misaligned views
+    (CPU-side: the planner alone)."""
+    seen = {(dwc_pe.plan_dwc1d(b, l, c, k, offset == 0).route, k, offset == 0)
+            for b, l, c, k, offset in DWC1D_VIEWS}
+    assert ("vec4", 4, True) in seen
+    assert {r for r, _, _ in seen} == {"vec4", "scalar"}
+    assert {k for r, k, _ in seen if r == "scalar"} >= {2, 3, 4, 5}
+    assert {a for r, _, a in seen if r == "scalar"} == {True, False}
+    assert all(k == dwc_pe.DWC1D_VEC_K for r, k, _ in seen if r == "vec4")
+
+
 @pytest.mark.parametrize("m,k,n", [(4, 8192, 288), (37, 256, 288),
                                    (1, 1000, 24), (256, 8192, 288),
                                    (4, 4096, 16384)])
@@ -495,26 +544,48 @@ def test_conv_pe_gemm_per_token_scale(dev, m, k, n, shift):
            conv_pe.matmul_int8_fused_plain(a, b, asc, wsc))
 
 
-# (B, Hq, Hkv, L, S, D, softcap, causal, dtype): L and S off the 16-row and
-# 32-key tiles and the 128-key chunk, one chunk and several, GQA and not
+# (B, Hq, Hkv, L, S, D, softcap, causal, dtype): L and S off the 64-key
+# tiles and the 128-key chunk, one chunk and several, GQA and not; every
+# block the planner picks (32, 16 and 8 rows) at every head dim in f32 and
+# bf16; the served prefills of qwen2 and gemma2 and both 2048-token shapes
 FLASH_SHAPES = [
     (2, 4, 2, 37, 100, 32, 0.0, True, torch.float32),
     (1, 8, 4, 130, 130, 256, 50.0, True, torch.float32),
     (1, 6, 2, 17, 1500, 128, 20.0, False, torch.bfloat16),
     (3, 2, 1, 1, 1, 128, 0.0, True, torch.float32),
     (1, 2, 2, 1100, 1100, 128, 50.0, True, torch.bfloat16),
+    (2, 4, 2, 48, 48, 32, 30.0, True, torch.bfloat16),
+    (4, 12, 2, 64, 64, 128, 0.0, True, torch.float32),
+    (4, 8, 4, 64, 64, 256, 50.0, True, torch.float32),
+    (4, 8, 4, 64, 64, 256, 50.0, True, torch.bfloat16),
+    (1, 8, 4, 100, 100, 256, 50.0, True, torch.bfloat16),
+    (2, 12, 2, 96, 96, 128, 0.0, True, torch.bfloat16),
+    (1, 8, 4, 2048, 2048, 256, 50.0, True, torch.float32),
+    (1, 12, 2, 2048, 2048, 128, 0.0, True, torch.bfloat16),
+    (1, 8, 4, 300, 300, 256, 0.0, False, torch.bfloat16),
+    (2, 8, 4, 150, 150, 256, 50.0, True, torch.float32),
+    (1, 12, 2, 400, 400, 128, 0.0, True, torch.float32),
+    (1, 8, 4, 1100, 1100, 256, 50.0, True, torch.bfloat16),
+    (1, 4, 2, 560, 560, 32, 0.0, True, torch.float32),
+    (1, 4, 2, 560, 700, 32, 30.0, True, torch.bfloat16),
+    (2, 4, 2, 600, 600, 32, 30.0, True, torch.float32),
+    (2, 4, 2, 600, 900, 32, 0.0, False, torch.bfloat16),
 ]
+
+
+def _flash_inputs(dev, b, hq, hkv, l, s, d, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(l + s + d)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) * sc
+               for shape, sc in (((b, hq, l, d), 3.0), ((b, hkv, s, d), 3.0),
+                                 ((b, hkv, s, d), 1.0)))
+    return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
 @pytest.mark.parametrize("b,hq,hkv,l,s,d,cap,causal,dtype", FLASH_SHAPES)
 def test_flash_attention(dev, b, hq, hkv, l, s, d, cap, causal, dtype):
     """The kernel against its plain version (one softmax over all keys)
     within 1e-5 of max|plain|: f32 sums in another order."""
-    g = torch.Generator(device=dev).manual_seed(l + s + d)
-    q, k, v = (torch.randn(shape, generator=g, device=dev) * sc
-               for shape, sc in (((b, hq, l, d), 3.0), ((b, hkv, s, d), 3.0),
-                                 ((b, hkv, s, d), 1.0)))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    q, k, v = _flash_inputs(dev, b, hq, hkv, l, s, d, dtype)
     before = _build.COUNTS.get("flash_attention", 0)
     got = flash_attn.flash_attention(q, k, v, causal=causal, softcap=cap)
     assert _build.COUNTS["flash_attention"] == before + 1
@@ -523,6 +594,37 @@ def test_flash_attention(dev, b, hq, hkv, l, s, d, cap, causal, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_shapes_reach_every_block():
+    """FLASH_SHAPES launch every block the planner can pick, at every head
+    dim that takes it, in both dtypes (CPU-side: the planner alone)."""
+    seen = {(flash_attn.plan(b, hq, hkv, l, s, d)[:2], d, dt)
+            for b, hq, hkv, l, s, d, _, _, dt in FLASH_SHAPES}
+    for rows, threads in flash_attn.FLASH_BLOCKS:
+        for d in flash_attn.HEAD_DIMS:
+            if flash_attn._block_ok(d, rows, threads):
+                for dt in (torch.float32, torch.bfloat16):
+                    assert ((rows, threads), d, dt) in seen, (rows, d, dt)
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,d,cap", [
+    (4, 12, 2, 64, 128, 0.0),                   # qwen2's served prefill
+    (4, 8, 4, 64, 256, 50.0),                   # gemma2's
+    (1, 8, 4, 2048, 256, 50.0)])                # two chunks of 1024 keys
+def test_flash_attention_bitwise_with_blocked_prefill(dev, b, hq, hkv, l, d,
+                                                      cap):
+    """The kernel keeps the op order of the ref backend's chunked prefill
+    attention (models/layers.flash_attention), fed as chip_smoke feeds it:
+    the same bits."""
+    from repro_torch.models import layers as L
+    q, k, v = _flash_inputs(dev, b, hq, hkv, l, l, d)
+    got = flash_attn.flash_attention(q, k, v, causal=True, softcap=cap)
+    blocked = L.flash_attention(
+        q.reshape(b, hkv, hq // hkv, l, d).permute(0, 3, 1, 2, 4),
+        k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=True,
+        logit_softcap=cap)
+    _check(got, blocked.permute(0, 2, 3, 1, 4).reshape(b, hq, l, d))
 
 
 def test_flash_mha_rejects_unsupported(dev):

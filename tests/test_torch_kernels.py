@@ -691,6 +691,78 @@ def test_flash_mha_matches_pallas_ref_and_layers(b, hq, hkv, l, s, causal,
         assert np.abs(got - other).max() <= 1e-5 * scale
 
 
+# (B, Hq, Hkv, L, S, D): qwen2's and gemma2's served prefill, the two
+# 2048-token shapes, and small ones (D = 32, ragged rows, one row)
+FLASH_PLAN_SHAPES = [(4, 12, 2, 64, 64, 128), (4, 8, 4, 64, 64, 256),
+                     (1, 8, 4, 2048, 2048, 256), (1, 12, 2, 2048, 2048, 128),
+                     (2, 4, 2, 37, 100, 32), (1, 6, 2, 17, 1500, 128),
+                     (3, 2, 1, 1, 1, 128), (1, 2, 2, 1100, 1100, 128)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,s,d", FLASH_PLAN_SHAPES)
+def test_flash_plan_covers_rows_and_fits(b, hq, hkv, l, s, d):
+    """plan(b, hq, hkv, l, s, d) (pure Python): its row tiles cover each KV
+    group's G x L flat rows once, its block is one the kernel's thread
+    layouts take, its shared memory fits the H100's 227 KB, and the served
+    shapes fill the SMs (FLASH_MIN_BLOCKS); at 2048 tokens a block holds 32
+    rows."""
+    p = flash_attn.plan(b, hq, hkv, l, s, d)
+    g_rows = hq // hkv * l
+    assert p.blocks % (b * hkv) == 0
+    assert _cover(g_rows, p.rows, p.blocks // (b * hkv)).tolist() == \
+        [1] * g_rows
+    assert (p.rows, p.threads) in flash_attn.FLASH_BLOCKS
+    assert flash_attn._block_ok(d, p.rows, p.threads)
+    assert p.chunk == flash_attn.kv_chunk(s)
+    assert p.smem == flash_attn.flash_smem(d, p.rows, p.threads, p.chunk)
+    assert p.smem <= flash_attn.SMEM_MAX
+    if (l, s) == (64, 64):
+        assert p.blocks >= flash_attn.FLASH_MIN_BLOCKS
+    if l == 2048:
+        assert p.rows == 32
+
+
+def test_flash_plan_block_choice():
+    """The rule at its edges: a grid short of the SMs takes the smallest
+    block; the served shapes' blocks are the ones scripts/attn_probe.py
+    measured fastest there (gemma2's 128 blocks, 4 SMs idle, beat 256 of
+    8 rows; qwen2's 96 of 32 rows lost to 192 of 16), and the 2048-token
+    shape's the largest; every block takes every head dim."""
+    assert flash_attn.plan(3, 2, 1, 1, 1, 128)[:2] == (8, 64)
+    assert flash_attn.plan(4, 12, 2, 64, 64, 128)[:2] == (16, 128)
+    assert flash_attn.plan(4, 8, 4, 64, 64, 256)[:2] == (16, 128)
+    assert flash_attn.plan(1, 8, 4, 2048, 2048, 256)[:2] == (32, 256)
+    assert all(flash_attn._block_ok(d, r, t) for r, t in
+               flash_attn.FLASH_BLOCKS for d in flash_attn.HEAD_DIMS)
+    assert not flash_attn._block_ok(128, 12, 128)
+    assert flash_attn.flash_smem(256, 32, 256, 1024) == 221056
+
+
+@pytest.mark.parametrize("b,l,c,k,aligned,route", [
+    (4, 64, 8192, 4, True, "vec4"),             # falcon-mamba's prefill
+    (3, 17, 8192, 4, True, "vec4"),
+    (2, 12, 40, 4, True, "vec4"),
+    (4, 64, 8192, 4, False, "scalar"),          # a misaligned view
+    (1, 2, 33, 4, True, "scalar"),              # C % 4
+    (2, 9, 96, 5, True, "scalar"),              # k off 4
+    (2, 9, 96, 3, True, "scalar"),
+    (2, 9, 96, 2, True, "scalar"),
+    (2, 9, 96, 1, True, "scalar")])
+def test_dwc1d_plan(b, l, c, k, aligned, route):
+    """plan_dwc1d (pure Python): the float4 route takes k = 4, C % 4 == 0
+    and an aligned view, at two steps a thread; every other shape the
+    scalar route; the grid covers every (sequence, run, channel group)
+    once."""
+    p = dwc_pe.plan_dwc1d(b, l, c, k, aligned)
+    assert p.route == route
+    assert p.steps == (dwc_pe.DWC1D_VEC_STEPS if route == "vec4"
+                       else dwc_pe.DWC1D_SCALAR_STEPS)
+    lanes = 4 if route == "vec4" else 1
+    threads = b * -(-l // p.steps) * (c // lanes)
+    assert (p.blocks - 1) * dwc_pe.DWC1D_THREADS < threads \
+        <= p.blocks * dwc_pe.DWC1D_THREADS
+
+
 def test_flash_mha_plain_widens_bf16():
     """bf16 operands go through the plain version widened to f32 (the
     kernel widens on load): the result is f32 and equals the f32 run."""
