@@ -544,6 +544,11 @@ def library_fn(torch, name: str, kern, args, kwargs):
         return run
 
     x, w = p["x"], p["w"]
+    if name == "dwc" and p["pad"] is not None:
+        # the DWC PE reads its SAME halo in place; cuDNN takes symmetric
+        # pads only, so the map is padded here, outside the timed function
+        top, bottom, left, right = p["pad"]
+        x = F.pad(x, (0, 0, left, right, top, bottom))
     xf = x.permute(0, 3, 1, 2).to(torch.float32).contiguous(
         memory_format=torch.channels_last)
     if name == "dwc":
@@ -749,8 +754,9 @@ def log_plans(label, calls):
     name: [(args, kwargs)]}; kernels/conv_pe.plan: path, tile, K splits,
     copy widths, epilogue placement) and of each int4 one (conv_pe.plan_w4:
     route, tile, groups a chunk, copy widths), with its
-    call count: a run shows where each route is taken."""
-    from repro_torch.kernels import conv_pe
+    call count: a run shows where each route is taken; and of each DWC
+    call (dwc_pe.plan_dwc2d: route, outputs a thread)."""
+    from repro_torch.kernels import conv_pe, dwc_pe
     shapes = {}
     for name in ("conv_pe", "conv_pe_res", "conv_pe_w4", "conv_pe_w4_res"):
         for args, _ in calls.get(name, ()):
@@ -775,6 +781,22 @@ def log_plans(label, calls):
             f"tile {p.bm}x{p.bn}, {p.splits} K split(s) of {p.ks}, copies "
             f"{p.wa}/{p.wb} B, epilogue "
             f"{'fused' if p.fused else 'pass'}")
+    dwcs = {}
+    for args, kwargs in calls.get("dwc", ()):
+        x, w, stride = args[0], args[1], args[3]
+        key = (tuple(x.shape), w.shape[0], stride, kwargs.get("pad"),
+               min(conv_pe.byte_align(x), conv_pe.byte_align(w)))
+        dwcs[key] = dwcs.get(key, 0) + 1
+    for ((n, h, wd, c), k, stride, pad, align), count in dwcs.items():
+        top, bottom, left, right = pad or (0, 0, 0, 0)
+        ho = (h + top + bottom - k) // stride + 1
+        wo = (wd + left + right - k) // stride + 1
+        p = dwc_pe.plan_dwc2d(n, ho, wo, c, k, stride, align)
+        key = f"dwc2d {p.route} run {p.run}"
+        paths[key] = paths.get(key, 0) + count
+        log(f"plan {label} dwc2d [{n}, {h}, {wd}, {c}] k {k} stride {stride} "
+            f"pad {pad} -> [{ho}, {wo}] x{count}: {p.route}, {p.run} "
+            f"outputs a thread, grid {p.blocks} x {ho} x {n}")
     log(f"plan {label}: calls by path {json.dumps(paths, sort_keys=True)}")
 
 
@@ -798,8 +820,9 @@ def steady_serving(torch, engine, name, images):
 def profile_wave(torch, engine, name, images):
     """Where one served wave's time goes: its wall time (median of five
     unprofiled waves), the host time to enqueue one program run (median of
-    five, the device left to finish afterwards), and the device time per
-    kernel name over one wave (torch.profiler)."""
+    five, the device left to finish afterwards), the device time per
+    kernel name over one wave (torch.profiler), and the wave's device
+    kernels by name in the order they ran."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     walls, enqueue = [], []
@@ -824,7 +847,61 @@ def profile_wave(torch, engine, name, images):
         if sum(per.values()) > 0:
             break
         log("torch.profiler reported no device time; profiling again")
-    return float(np.median(walls)), float(np.median(enqueue)), per
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if _self_us(e) > 0)
+    return (float(np.median(walls)), float(np.median(enqueue)), per,
+            [n for _, n in kernels])
+
+
+DWC_KERNELS = ("dwc_vec_kernel", "dwc_scalar_kernel")
+
+
+def check_no_pad_copy(label, kernels):
+    """No fill or copy kernel runs right ahead of a DWC kernel in a wave's
+    kernel sequence: the DWC PE reads its SAME halo in place."""
+    at = [i for i, k in enumerate(kernels) if any(d in k for d in DWC_KERNELS)]
+    ahead = [kernels[i - 1] for i in at if i > 0]
+    bad = [k for k in ahead if "fill" in k.lower() or "copy" in k.lower()]
+    if bad:
+        fail(f"{label}: a fill or copy kernel runs ahead of a DWC call: "
+             f"{bad[0][:120]}")
+    log(f"profile {label}: {len(kernels)} device kernels in the wave, "
+        f"{len(at)} DWC; the kernels ahead of them: "
+        f"{json.dumps(sorted({k[:48] for k in ahead}))}")
+
+
+def check_dwc_allocs(torch, eng, calls):
+    """One ops.dwc2d call on the card (the CNN path's entry to the DWC PE,
+    SAME padding) allocates its output alone -- no padded copy of the map
+    -- and equals the recorded kernel call bit for bit.  Counted with
+    torch.cuda.memory_stats, at the first recorded call whose pads are
+    uneven (the stride-2 layers' (0, 1))."""
+    from repro_torch.core.quant import QTensor
+    from repro_torch.kernels import dwc_pe, ops
+    args, kwargs = next(((a, kw) for a, kw in calls
+                         if kw["pad"] and kw["pad"][0] != kw["pad"][1]),
+                        calls[0])
+    x, w, bias, stride, act = args
+    xq = QTensor(x, kwargs["a_scale"])
+    wq = QTensor(w, kwargs["w_scale"])
+
+    def allocs():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = ops.dwc2d(xq, wq, bias, stride, "SAME", act, eng,
+                    out_scale=kwargs["out_scale"])   # warm: plan cached
+    before = allocs()
+    out = ops.dwc2d(xq, wq, bias, stride, "SAME", act, eng,
+                    out_scale=kwargs["out_scale"])
+    n = allocs() - before
+    if n != 1:
+        fail(f"ops.dwc2d at {tuple(x.shape)} pad {kwargs['pad']}: {n} "
+             f"allocations, want its output alone")
+    if not torch.equal(out, dwc_pe.dwc2d(*args, **kwargs)):
+        fail("ops.dwc2d differs from the recorded DWC call")
+    log(f"dwc alloc: one ops.dwc2d call at {tuple(x.shape)} stride {stride} "
+        f"pad {kwargs['pad']} makes 1 allocation (its output; no padded "
+        f"copy)")
 
 
 def check_counts(label: str, counts: dict, runs: int):
@@ -902,6 +979,9 @@ def serve_model(torch, engine, cfg, images, ref_eng, results):
 
     calls = capture_calls(torch, lambda: engine.infer(cfg.name, images[:4]))
     log_plans(cfg.name, calls)
+    if calls["dwc"]:
+        with torch.inference_mode():
+            check_dwc_allocs(torch, engine.eng, calls["dwc"])
     for name in PER_RUN[cfg.name]:
         timed = name in TIMED[cfg.name]
         with torch.inference_mode():
@@ -929,7 +1009,9 @@ def serve_model(torch, engine, cfg, images, ref_eng, results):
     log(f"serve steady {cfg.name}: {TRIALS} x {len(images)} requests, "
         f"median {rate:.2f} images/s, p50 {lat['p50_ms']:.3f} ms, p99 "
         f"{lat['p99_ms']:.3f} ms over {lat['n']} requests")
-    wall_us, enq_us, per = profile_wave(torch, engine, cfg.name, images[:4])
+    wall_us, enq_us, per, kernels = profile_wave(torch, engine, cfg.name,
+                                                 images[:4])
+    check_no_pad_copy(cfg.name, kernels)
     busy = sum(per.values())
     if busy <= 0:
         fail("torch.profiler reported no device time for a served wave")
@@ -1032,8 +1114,8 @@ def zoo_sweep(torch, eng, ref_eng):
     """Every zoo model at SWEEP_HW px and batch SWEEP_BATCH, fused and
     unfused on one calibration: the CUDA backend against backend="ref" on
     the card, and the unfused program against the fused, bit for bit; each
-    program's Low-Channel stem call held bitwise against its plain
-    version."""
+    program's Low-Channel stem call, and every DWC and pooled Conv PE call,
+    held bitwise against its plain version."""
     import dataclasses
     import numpy as np
     from repro_torch import compiler
@@ -1055,7 +1137,7 @@ def zoo_sweep(torch, eng, ref_eng):
         scales = compiler.calibrate(compiler.build_graph(cfg), params,
                                     [calib], cfg)
         qp = eng_lib.quantize_params(params, eng)
-        logits, counts, stems = [], [], []
+        logits, counts, stems, held = [], [], [], {}
         for fuse in (True, False):
             program = compiler.compile_cnn(cfg, scales=scales, fuse=fuse)
             qparams = compiler.fold_weight_layouts(program.graph, qp)
@@ -1072,6 +1154,8 @@ def zoo_sweep(torch, eng, ref_eng):
                 fail(f"{name} (fuse={fuse}): {len(stem)} Low-Channel calls "
                      "in one program run, want 1")
             stems += stem
+            for kind in ("dwc", "conv_pe_pool", "conv_pe_pool_res"):
+                held.setdefault(kind, []).extend(calls[kind])
             want = compiler.execute(program, qparams, x, ref_eng)
             logits.append(got.cpu().numpy())
             check_logits(np, logits[-1], want.cpu().numpy(),
@@ -1082,10 +1166,15 @@ def zoo_sweep(torch, eng, ref_eng):
         with torch.inference_mode():
             for kind, call in stems:
                 kernel_phase(torch, kind, [call], timed=False)
+            for kind, kcalls in held.items():
+                if kcalls:
+                    kernel_phase(torch, kind, kcalls, timed=False)
+        others = ", ".join(f"{len(c)} {k}" for k, c in held.items() if c)
         log(f"sweep {name} @{SWEEP_HW}px: fused and unfused bitwise equal "
             f"to backend='ref' and to each other, stems "
             f"{'/'.join(kind for kind, _ in stems)} bitwise equal to their "
-            f"plain versions; launches fused "
+            f"plain versions, and {others or 'no DWC or pooled'} calls "
+            f"(both programs); launches fused "
             f"{json.dumps(counts[0], sort_keys=True)}, unfused "
             f"{json.dumps(counts[1], sort_keys=True)}")
 

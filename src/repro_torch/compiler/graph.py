@@ -315,6 +315,44 @@ def build_graph(cfg: CNNConfig) -> Graph:
     return Graph(tuple(b.nodes), output=x, name=cfg.name)
 
 
+def dwc_input_shapes(cfg: CNNConfig) -> List[Tuple[int, int, int, int, int]]:
+    """(h, w, c, k, stride) of each DwcOp's input map for one image, in the
+    order of build_graph(cfg)'s nodes: the graph's nodes walked with the
+    weight shapes cnn_schema gives their paths (k, the channels), SAME maps
+    sized by the pads ops.dwc2d and ops.conv2d_pe take (ops._same_pad),
+    VALID max pools (h - k) // stride + 1, a concat the sum of its
+    channels.  What a program run at cfg.input_hw hands the DWC PE."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import cnn_schema
+
+    def sized(h, k, stride, padding):
+        pad = sum(ops._same_pad(h, k, stride)) if padding == "SAME" else 0
+        return (h + pad - k) // stride + 1
+
+    schema = cnn_schema(cfg)
+    shape: Dict[int, Tuple[int, int]] = {}       # node id -> (h = w, c)
+    out = []
+    for n in build_graph(cfg).nodes:
+        if isinstance(n, InputOp):
+            shape[n.id] = (cfg.input_hw, cfg.input_ch)
+        elif isinstance(n, (ConvOp, DwcOp)):
+            h, c = shape[n.inputs[0]]
+            w = get_param(schema, n.w).shape
+            if isinstance(n, DwcOp):
+                out.append((h, h, c, w[0], n.stride))
+            shape[n.id] = (sized(h, w[0], n.stride, n.padding), w[-1])
+        elif isinstance(n, PoolOp):
+            h, c = shape[n.inputs[0]]
+            shape[n.id] = ((1 if n.pool == "global"
+                            else (h - n.kernel) // n.stride + 1), c)
+        elif isinstance(n, AddOp):
+            shape[n.id] = shape[n.inputs[0]]
+        elif isinstance(n, ConcatOp):
+            shape[n.id] = (shape[n.inputs[0]][0],
+                           sum(shape[i][1] for i in n.inputs))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Transformer lowering
 # ---------------------------------------------------------------------------

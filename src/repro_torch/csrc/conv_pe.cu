@@ -49,10 +49,24 @@
 // atomicAdd: an int32 sum is exact in any order, so every plan gives the
 // same bits.
 //
-// The pooled variant is bytes-bound at MobileNetV2's and ResNet50's shapes:
-// one block owns one image's ho*wo rows for 64 columns, requantizes every row
-// in registers, sums the codes in int32 and writes one pooled int8 value per
-// column -- the pre-pool feature map never reaches device memory.
+// The pooled variant (the CNN head: a 1x1 conv whose static global-pool
+// tail folds in) does a few MFLOP on ~1 MB of weights, so a block's latency
+// chain sets its time, not bytes or ops.  pool_kernel: one block owns one
+// image g and a strip of PBN output columns.  It stages the image's rows x
+// K of A (rows zero-filled to 16s, K to 64s), B's K x PBN strip and, for
+// the residual variant, R's rows x PBN strip into shared memory with 16-byte
+// cp.async copies (narrower where a row is not 16-byte aligned), all in
+// flight before one wait (a head past the shared memory: passes of 64 rows
+// and slices of K, pool_plan); transposes B into K-major 64-byte tiles as
+// mma_kernel does; and multiplies on the int8 tensor cores (mma.sync
+// m16n8k32 through ldmatrix), each warp 16 rows x 32 columns at a time.
+// The epilogue runs on the fragments: dequant, bias, act, codes at
+// mid_scale (then for the residual variant + r * res_scale, add_act, codes
+// at add_scale; each requant a multiply by the reciprocal where that
+// cannot move the code, epilogue.cuh's qdq_code_rcp), and each column's
+// int32 sum over the image's real rows (padded rows left out) through warp
+// shuffles and one shared array; then * gap_scale and the requant.  The
+// pre-pool feature map never reaches device memory.
 #include "epilogue.cuh"
 #include "mma_s8.cuh"
 
@@ -546,82 +560,220 @@ mma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   }
 }
 
-// Pooled epilogue: grid (N / PN, G); block = PN columns x PG row groups.
+// Pooled epilogue: grid (ceil(N / PBN), G); 4 x PBN / 32 warps, warp (wm, wn)
+// taking row tiles wm, wm + 4, ... of 16 rows and columns [32 wn, 32 wn +
+// 32) of the strip.  The block runs the image's rows in passes of pr rows
+// and K in slices of kc bytes (pool_plan): one pass and one slice where the
+// operands fit the shared memory, all staged at once (every served head);
+// else passes of 64 rows, one tile a warp whose accumulators stay on the
+// fragments across the slices, with B's strip staged once where K fits
+// whole.  Dynamic shared memory (pool_smem): A [kc / 64][pr][64] (a_unit),
+// the K-major B tile [kc / 64][BN][64] (b_unit), B's N-major strip [kc][BN]
+// as copied, R's strip [pr][BN] (HAS_RES), the column sums [4][BN].
 // HAS_RES: the bottleneck's shortcut R [G, rows, N] int8 is added before
 // the pool (qdq at mid_scale, + r * res_scale, add_act, qdq at add_scale).
-constexpr int PN = 64, PG = 4, PR = 16, PKC = 64;
-constexpr int PROWS = PG * PR;  // rows staged per pass
+constexpr int PBN = 64;   // output columns a block (scripts/cnn_probe.py)
+constexpr int POOL_SMEM_MAX = 232448;   // the H100's shared memory a block
 
-template <bool HAS_RES>
-__global__ void __launch_bounds__(PN * PG)
+inline size_t pool_smem(int pr, int kc, bool has_res) {
+  return (size_t)kc * pr + 2 * (size_t)kc * PBN +
+         (has_res ? (size_t)pr * PBN : 0) + 4 * (size_t)PBN * sizeof(int);
+}
+
+// The pass rows pr (a multiple of 16) and K slice kc (of 64) of pool_kernel:
+// all rows and all of K where that fits, else passes of at most 64 rows --
+// one tile a warp, as the kernel needs wherever K is sliced -- and the
+// widest slice that fits (64 always does).
+struct PoolPlan {
+  int pr, kc;
+  bool sliced;   // more than one pass or slice
+};
+
+inline PoolPlan pool_plan(int rows, int K, bool has_res) {
+  const int rp = (rows + 15) / 16 * 16, kp = (K + BK - 1) / BK * BK;
+  if (pool_smem(rp, kp, has_res) <= POOL_SMEM_MAX) return {rp, kp, false};
+  const int pr = rp < 64 ? rp : 64;
+  int kc = kp;
+  while (pool_smem(pr, kc, has_res) > POOL_SMEM_MAX) kc -= BK;
+  return {pr, kc, true};
+}
+
+// SLICED false: one pass and one slice (pr and kc ignored), every loop
+// over passes and slices folded away at compile time.
+template <bool HAS_RES, bool SLICED>
+__global__ void __launch_bounds__(4 * PBN)
 pool_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-            void* __restrict__ C, int rows, int N, int K, float a_scale,
+            void* __restrict__ C, int rows, int N, int K, int pr, int kc,
+            int wa, int wb, int wr, float a_scale,
             const float* __restrict__ w_scale,
             const float* __restrict__ bias, int act, float mid_scale,
             const int8_t* __restrict__ R, float res_scale, int add_act,
             float add_scale, float gap_scale, int out_int8, float os_val) {
-  __shared__ __align__(16) int8_t As[PROWS][PKC + 4];
-  __shared__ int part[PG][PN];
-  const int tx = threadIdx.x % PN, ty = threadIdx.x / PN;
-  const int g = blockIdx.y, n = blockIdx.x * PN + tx;
+  constexpr int BN = PBN, THREADS = 4 * BN, NI = 4;   // NI: n8 tiles a warp
+  extern __shared__ __align__(16) unsigned char p_smem[];
+  const int kp = (K + BK - 1) / BK * BK, rp = (rows + 15) / 16 * 16;
+  if (!SLICED) pr = rp, kc = kp;
+  int8_t* As = reinterpret_cast<int8_t*>(p_smem);
+  int8_t* Bt = As + kc * pr;
+  int8_t* Bs = Bt + kc * BN;
+  int8_t* Rs = Bs + kc * BN;
+  int* red = reinterpret_cast<int*>(Rs + (HAS_RES ? pr * BN : 0));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % 4, wn = warp / 4;
+  const int g = blockIdx.y, n0 = blockIdx.x * BN;
   const int8_t* Ag = A + (size_t)g * rows * K;
-  int total = 0;   // int32 sum of this thread's rows' requantized codes
-  for (int r0 = 0; r0 < rows; r0 += PROWS) {
-    int acc[PR];
+  const int8_t* Rg = HAS_RES ? R + (size_t)g * rows * N : R;
+
+  const int g8 = lane >> 2, t4 = lane & 3;
+  float ws[NI][2], bs[NI][2];   // this thread's columns' epilogue operands
+  unsigned b_addr[NI];
 #pragma unroll
-    for (int i = 0; i < PR; ++i) acc[i] = 0;
-    for (int k0 = 0; k0 < K; k0 += PKC) {
-      for (int i = threadIdx.x; i < PROWS * PKC; i += PN * PG) {
-        const int r = i / PKC, c = i % PKC, gr = r0 + r, gk = k0 + c;
-        As[r][c] = (gr < rows && gk < K) ? Ag[(size_t)gr * K + gk]
-                                          : int8_t(0);
+  for (int j = 0; j < NI; ++j)
+    b_addr[j] = smem_addr(Bt + b_unit(wn * 32 + j * 8 + (lane & 7),
+                                      lane >> 3) * 16);
+  int colsum[NI][2] = {};
+  int acc[NI][4];
+  const float rcp_mid = requant_rcp(mid_scale);
+  const float rcp_add = HAS_RES ? requant_rcp(add_scale) : 0.f;
+
+  for (int p0 = 0; p0 < rp; p0 += pr) {
+    const int prn = min(pr, rp - p0), real = min(prn, rows - p0);
+    for (int k0 = 0; k0 < kp; k0 += kc) {
+      const int kcn = min(kc, kp - k0);
+      const bool stage_b = kc < kp || p0 == 0;
+      if (p0 + k0 > 0) __syncthreads();   // the last slice's reads are done
+      // every copy of the slice in flight, then one wait
+      for (int u = tid; u < prn * (kcn / 16); u += THREADS) {
+        const int r = u / (kcn / 16), c = u % (kcn / 16), gr = p0 + r;
+        copy16<false>(As + (c / 4) * pr * BK + a_unit(r, c % 4) * 16,
+                      Ag + (size_t)(gr < rows ? gr : 0) * K, k0 + 16 * c,
+                      gr < rows ? K : 0, wa);
       }
-      __syncthreads();
-      if (n < N) {
-        for (int kk = 0; kk < PKC; kk += 4) {
-          unsigned b = 0;   // four int8 codes of column n, packed
+      for (int u = tid; stage_b && u < kcn * (BN / 16); u += THREADS) {
+        const int kk = u / (BN / 16), c = u % (BN / 16), gk = k0 + kk;
+        copy16<false>(Bs + kk * BN + 16 * c,
+                      B + (size_t)(gk < K ? gk : 0) * N, n0 + 16 * c,
+                      gk < K ? N : 0, wb);
+      }
+      for (int u = tid; HAS_RES && k0 == 0 && u < real * (BN / 16);
+           u += THREADS) {
+        const int r = u / (BN / 16), c = u % (BN / 16);
+        copy16<false>(Rs + r * BN + 16 * c, Rg + (size_t)(p0 + r) * N,
+                      n0 + 16 * c, N, wr);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      if (p0 + k0 == 0) {   // loaded while the first copies fly
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int gk = k0 + kk + q;
-            const unsigned v =
-                gk < K ? static_cast<uint8_t>(B[(size_t)gk * N + n]) : 0u;
-            b |= v << (8 * q);
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + wn * 32 + j * 8 + 2 * t4 + e;
+            ws[j][e] = n < N ? w_scale[n] : 0.f;
+            bs[j][e] = n < N && bias != nullptr ? bias[n] : 0.f;
           }
-#pragma unroll
-          for (int i = 0; i < PR; ++i)
-            acc[i] = __dp4a(
-                *reinterpret_cast<const int*>(&As[ty + PG * i][kk]),
-                static_cast<int>(b), acc[i]);
-        }
       }
+      asm volatile("cp.async.wait_group 0;\n" ::);
       __syncthreads();
-    }
-    if (n < N) {
+
+      // B's strip -> K-major 64-byte tiles: a task is 16 k rows x 4 columns
+      for (int t = tid; stage_b && t < (kcn / 16) * (BN / 4); t += THREADS) {
+        const int cg = t % (BN / 4), kq = t / (BN / 4);
+        unsigned w[16];
 #pragma unroll
-      for (int i = 0; i < PR; ++i) {
-        const int row = r0 + ty + PG * i;
-        if (row >= rows) break;
-        const float x = dequant_bias_act(acc[i], a_scale, w_scale[n], bias,
-                                         n, act);
-        float code = qdq_code(x, mid_scale);
-        if (HAS_RES) {
-          const float r = static_cast<float>(
-              R[((size_t)g * rows + row) * N + n]);
-          const float y = apply_act(
-              __fadd_rn(__fmul_rn(code, mid_scale), __fmul_rn(r, res_scale)),
-              add_act);
-          code = qdq_code(y, add_scale);
+        for (int i = 0; i < 16; ++i)
+          w[i] = *reinterpret_cast<const unsigned*>(Bs + (kq * 16 + i) * BN +
+                                                    cg * 4);
+        unsigned col[4][4];   // [column j][k quad q]
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          transpose4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3],
+                     col[0][q], col[1][q], col[2][q], col[3][q]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint4*>(Bt + (kq / 4) * BN * BK +
+                                    b_unit(cg * 4 + j, kq % 4) * 16) =
+              make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
+      }
+      if (stage_b) __syncthreads();
+
+      // a sliced K keeps one tile a warp (pr <= 64), its sums on the
+      // fragments from the first slice to the last
+      for (int mt = wm; mt < prn / 16; mt += 4) {
+        if (k0 == 0) {
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] = 0;
         }
-        total += static_cast<int>(code);
+        unsigned a_off[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          a_off[s] = a_unit(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                            2 * s + (lane >> 4)) * 16;
+        for (int ch = 0; ch < kcn / BK; ++ch) {
+          const unsigned as = smem_addr(As + ch * pr * BK);
+          unsigned bf[NI][4];
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+            ldmatrix4(bf[j], b_addr[j] + ch * BN * BK);
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            unsigned af[4];
+            ldmatrix4(af, as + a_off[s]);
+#pragma unroll
+            for (int j = 0; j < NI; ++j)
+              mma_s8(acc[j], af, bf[j][2 * s], bf[j][2 * s + 1]);
+          }
+        }
+        if (k0 + kcn < kp) continue;            // more slices to come
+        // accumulator (j, 2h + e): pass row mt * 16 + g8 + 8h, column 2 t4
+        // + e
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g8 + 8 * h;
+          if (p0 + r >= rows) continue;         // a padded row
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = __fmul_rn(
+                  __fmul_rn(__int2float_rn(acc[j][2 * h + e]), a_scale),
+                  ws[j][e]);
+              if (bias != nullptr) x = __fadd_rn(x, bs[j][e]);
+              x = apply_act(x, act);
+              if (HAS_RES) {
+                const float rv = static_cast<float>(
+                    Rs[r * BN + wn * 32 + j * 8 + 2 * t4 + e]);
+                x = apply_act(
+                    __fadd_rn(__fmul_rn(qdq_code_rcp(x, mid_scale, rcp_mid),
+                                        mid_scale),
+                              __fmul_rn(rv, res_scale)), add_act);
+              }
+              colsum[j][e] += code_int(
+                  HAS_RES ? qdq_code_rcp(x, add_scale, rcp_add)
+                          : qdq_code_rcp(x, mid_scale, rcp_mid));
+            }
+        }
       }
     }
   }
-  part[ty][tx] = total;
+  // the 8 row lanes g8 of each column, then the 4 row warps wm
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      int v = colsum[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g8 == 0) red[wm * BN + wn * 32 + j * 8 + 2 * t4 + e] = v;
+    }
   __syncthreads();
-  if (ty == 0 && n < N) {
-    const int s = part[0][tx] + part[1][tx] + part[2][tx] + part[3][tx];
+  if (tid < BN && n0 + tid < N) {
+    const int s = red[tid] + red[BN + tid] + red[2 * BN + tid] +
+                  red[3 * BN + tid];
     const float y = __fmul_rn(__int2float_rn(s), gap_scale);
-    const size_t idx = (size_t)g * N + n;
+    const size_t idx = (size_t)g * N + n0 + tid;
     if (out_int8)
       static_cast<int8_t*>(C)[idx] = static_cast<int8_t>(qdq_code(y, os_val));
     else
@@ -673,6 +825,39 @@ int launch_mma(const int8_t* a, const int8_t* b, void* C, int M, int N,
 bool width_ok(int w, int extent, const void* p) {
   return (w == 1 || w == 2 || w == 4 || w == 8 || w == 16) &&
          extent % w == 0 && reinterpret_cast<uintptr_t>(p) % w == 0;
+}
+
+// The widest copy (16, 8, 4, 2 or 1 bytes) that divides a row of `extent`
+// bytes and the pointer's alignment.
+int copy_width(int extent, const void* p) {
+  for (int w = 16; w > 1; w /= 2)
+    if (width_ok(w, extent, p)) return w;
+  return 1;
+}
+
+template <bool HAS_RES>
+int launch_pool(const int8_t* a, const int8_t* b, void* C, int G, int rows,
+                int N, int K, float a_scale, const float* ws, const float* bs,
+                int act, float mid_scale, const int8_t* r, float res_scale,
+                int add_act, float add_scale, float gap_scale, int out_int8,
+                float os_val, cudaStream_t s) {
+  const PoolPlan p = pool_plan(rows, K, HAS_RES);
+  const auto kernel = p.sliced ? pool_kernel<HAS_RES, true>
+                               : pool_kernel<HAS_RES, false>;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(pool_kernel<HAS_RES, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           POOL_SMEM_MAX),
+      cudaFuncSetAttribute(pool_kernel<HAS_RES, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           POOL_SMEM_MAX)};
+  if (attr[p.sliced] != cudaSuccess) return static_cast<int>(attr[p.sliced]);
+  const dim3 grid((N + PBN - 1) / PBN, G);
+  kernel<<<grid, 4 * PBN, pool_smem(p.pr, p.kc, HAS_RES), s>>>(
+      a, b, C, rows, N, K, p.pr, p.kc, copy_width(K, a), copy_width(N, b),
+      HAS_RES ? copy_width(N, r) : 1, a_scale, ws, bs, act, mid_scale, r,
+      res_scale, add_act, add_scale, gap_scale, out_int8, os_val);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -748,27 +933,29 @@ extern "C" int conv_pe_gemm(const void* A, const void* B, void* C, int M,
 // codes at mid_scale, int32 sum over the rows, times gap_scale (the host's
 // pre-pool scale / rows rounded once to f32), requant at os_val when
 // out_int8.  With R [G, rows, N] int8 (else nullptr) the residual add runs
-// first and the pre-pool scale is add_scale.
+// first and the pre-pool scale is add_scale.  Any rows and K: operands
+// past the shared memory are staged in passes of rows and slices of K.
+// Returns cudaErrorInvalidValue for an empty or too-tall grid, else
+// cudaGetLastError().
 extern "C" int conv_pe_pool(const void* A, const void* B, void* C, int G,
                             int rows, int N, int K, float a_scale,
                             const void* w_scale, const void* bias, int act,
                             float mid_scale, const void* R, float res_scale,
                             int add_act, float add_scale, float gap_scale,
                             int out_int8, float os_val, void* stream) {
-  const dim3 grid((N + PN - 1) / PN, G);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const int8_t*>(A);
   const auto* b = static_cast<const int8_t*>(B);
   const auto* ws = static_cast<const float*>(w_scale);
   const auto* bs = static_cast<const float*>(bias);
   const auto* r = static_cast<const int8_t*>(R);
+  if (G < 1 || rows < 1 || N < 1 || K < 1 || G > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R != nullptr)
-    pool_kernel<true><<<grid, PN * PG, 0, s>>>(
-        a, b, C, rows, N, K, a_scale, ws, bs, act, mid_scale, r, res_scale,
-        add_act, add_scale, gap_scale, out_int8, os_val);
-  else
-    pool_kernel<false><<<grid, PN * PG, 0, s>>>(
-        a, b, C, rows, N, K, a_scale, ws, bs, act, mid_scale, r, res_scale,
-        add_act, add_scale, gap_scale, out_int8, os_val);
-  return static_cast<int>(cudaGetLastError());
+    return launch_pool<true>(a, b, C, G, rows, N, K, a_scale, ws, bs, act,
+                             mid_scale, r, res_scale, add_act, add_scale,
+                             gap_scale, out_int8, os_val, s);
+  return launch_pool<false>(a, b, C, G, rows, N, K, a_scale, ws, bs, act,
+                            mid_scale, r, res_scale, add_act, add_scale,
+                            gap_scale, out_int8, os_val, s);
 }

@@ -26,6 +26,53 @@ __device__ __forceinline__ float qdq_code(float x, float s) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
 }
 
+// float(acc) for |acc| < 2^22 on the FP32 pipe, without a conversion
+// instruction: acc added to the bits of 1.5 * 2^23 (whose ulp is 1), then
+// 1.5 * 2^23 taken off; both steps are exact, so it equals
+// __int2float_rn(acc) there.
+__device__ __forceinline__ float small_int2float(int acc) {
+  return __fsub_rn(__int_as_float(0x4B400000 + acc), 12582912.f);
+}
+
+// An integer-valued float |v| < 2^22 as an int, without a conversion
+// instruction (the bits of v + 1.5 * 2^23).
+__device__ __forceinline__ int code_int(float v) {
+  return __float_as_int(__fadd_rn(v, 12582912.f)) - 0x4B400000;
+}
+
+// The reciprocal qdq_code_rcp takes: __frcp_rn(s) (correctly rounded)
+// where that is a normal float, else NaN, which sends every call to the
+// division.
+__device__ __forceinline__ float requant_rcp(float s) {
+  const float r = __frcp_rn(s);
+  return fabsf(r) >= 0x1p-126f && fabsf(r) <= 0x1.fffffep127f
+             ? r : __int_as_float(0x7fffffff);
+}
+
+// qdq_code(x, s) for every x, bit for bit, with rcp = requant_rcp(s) and
+// one multiply in place of the IEEE division wherever that cannot move the
+// code.  p = x * rcp is within 2.0000001 * 2^-24 of x / s relatively, and
+// the division's own result within 2^-24, so where p lies more than 2^-14
+// from every half-integer (|x / s| < 128 wherever that matters: 3 * 2^-24
+// * 128 < 2^-14) both lie strictly between the same two half-integers and
+// round to the same integer; the clamp to +-127 commutes with the rounding
+// (NaN goes to -127 either way).  Elsewhere -- about one value in 10^4, and
+// every value when rcp is NaN -- the division decides.  The rounding is
+// the add of 1.5 * 2^23 (whose ulp is 1: nearest, ties to even, as rintf).
+__device__ __noinline__ float qdq_code_slow(float x, float s) {
+  return qdq_code(x, s);
+}
+
+__device__ __forceinline__ float qdq_code_rcp(float x, float s, float rcp) {
+  const float p = __fmul_rn(x, rcp);
+  const float r = __fsub_rn(
+      __fadd_rn(fminf(fmaxf(p, -127.f), 127.f), 12582912.f), 12582912.f);
+  const float d = fabsf(__fsub_rn(p, r));
+  if (!(d < 0.5f - 0x1p-14f || d > 0.5f + 0x1p-14f))
+    return qdq_code_slow(x, s);
+  return r;
+}
+
 // dequant(int32 acc) -> bias -> act, in the reference's order:
 // acc.f32 * a_scale * w_scale + bias.
 __device__ __forceinline__ float dequant_bias_act(int acc, float a_scale,

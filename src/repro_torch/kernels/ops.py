@@ -452,6 +452,16 @@ def dwc2d(x, w, bias: Optional[torch.Tensor], stride: int, padding: str,
     RACNL epilogue; `epilogue` fuses an absorbed MISC tail (ref backend)."""
     static, quant, xin, a_scale, w_in, w_scale = _int8_operands(x, w, cfg)
     k = w_in.shape[0]
+    if _kernels(cfg) and epilogue is None:
+        # the kernel reads the SAME halo in place: no padded copy
+        pad = None
+        if padding == "SAME":
+            pad = (_same_pad(xin.shape[1], k, stride)
+                   + _same_pad(xin.shape[2], k, stride))
+        return dwc_pe.dwc2d(xin, w_in, bias, stride, act,
+                            a_scale=float(a_scale), w_scale=w_scale,
+                            out_scale=out_scale, out_dtype=out_dtype,
+                            pad=pad)
     if padding == "SAME":
         xin = pad_same(xin, k, stride)
     if epilogue is not None:
@@ -463,10 +473,6 @@ def dwc2d(x, w, bias: Optional[torch.Tensor], stride: int, padding: str,
                                      res_scale=res_scale,
                                      **_chain_kwargs(epilogue, static,
                                                      out_scale))
-    if _kernels(cfg):
-        return dwc_pe.dwc2d(xin.contiguous(), w_in, bias, stride, act,
-                            a_scale=float(a_scale), w_scale=w_scale,
-                            out_scale=out_scale, out_dtype=out_dtype)
     return ref.dwc2d(xin, w_in, bias, stride, act, a_scale=a_scale,
                      w_scale=w_scale, out_scale=out_scale,
                      out_dtype=out_dtype)

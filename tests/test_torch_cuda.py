@@ -6,7 +6,8 @@ at import).  On the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are small and ragged (M/N/K off the tile sizes, odd channel counts,
-stride 2, rows off the pooled GEMM's 64-row pass, C off 128, odd element
+stride 2, rows off the pooled GEMM's four 16-row tiles, C off 128, DWC
+maps unpadded with every SAME pad the zoo produces, odd element
 counts, int4 groups off the 1024-row staging chunk, pages off 16 bytes,
 stem K off 32 and OC off its 64-channel block, pooled tiles off the plan's);
 every output must equal the plain version bit for bit, except the flash
@@ -115,8 +116,15 @@ def test_conv_pe_residual(dev, m, k, n, res_dtype, mid):
                                                 "none", **kw))
 
 
-@pytest.mark.parametrize("g,rows,k,n", [(4, 49, 320, 1280), (3, 16, 40, 70)])
+@pytest.mark.parametrize("g,rows,k,n", [(4, 49, 320, 1280), (3, 16, 40, 70),
+                                        (2, 4, 1024, 1000),
+                                        (1, 100, 1024, 1024),
+                                        (2, 100, 2000, 136)])
 def test_conv_pe_pool(dev, g, rows, k, n):
+    """MobileNetV2's head, K off 64 with ragged N, 4 rows an image (the
+    64-px sweep's 2 x 2 maps) with N off the strip, and two heads past the
+    shared memory: mobilenetv1's at 320 px (passes of rows, K whole) and K
+    in two slices (2000: off 64) with ragged N."""
     rng = np.random.default_rng(g * rows)
     a, b = _q(rng, (g, rows, k), dev), _q(rng, (k, n), dev)
     wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
@@ -126,8 +134,15 @@ def test_conv_pe_pool(dev, g, rows, k, n):
                                           **kw))
 
 
-@pytest.mark.parametrize("g,rows,k,n", [(4, 49, 512, 2048), (3, 70, 40, 70)])
+@pytest.mark.parametrize("g,rows,k,n", [(4, 49, 512, 2048), (3, 70, 40, 70),
+                                        (2, 4, 1024, 1000),
+                                        (1, 400, 512, 2048),
+                                        (2, 100, 2000, 136)])
 def test_conv_pe_pool_residual(dev, g, rows, k, n):
+    """ResNet50's head, rows over four row tiles with K off 64, 4 rows an
+    image with N off the strip, and two heads past the shared memory:
+    ResNet50's at 640 px (seven passes of rows, the last one tile) and K
+    in two slices with ragged N."""
     rng = np.random.default_rng(g * rows + 1)
     a, b = _q(rng, (g, rows, k), dev), _q(rng, (k, n), dev)
     wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
@@ -141,15 +156,186 @@ def test_conv_pe_pool_residual(dev, g, rows, k, n):
                                                "none", **kw))
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("c", [40, 96])
-def test_dwc(dev, stride, c):
-    rng = np.random.default_rng(c + stride)
-    x, w = _q(rng, (2, 11, 11, c), dev), _q(rng, (3, 3, c), dev)
-    wsc, bias = _f(rng, (c,), dev), _f(rng, (c,), dev, -1.0, 1.0)
-    kw = dict(a_scale=0.031, w_scale=wsc, out_scale=0.057)
-    _check(dwc_pe.dwc2d(x, w, bias, stride, "relu6", **kw),
-           dwc_pe.dwc2d_plain(x, w, bias, stride, "relu6", **kw))
+# (N, H, W, C, k, stride, (top, bottom, left, right)): unpadded maps with
+# every SAME pad the zoo produces -- (1, 1) at k 3 stride 1 and odd maps
+# at stride 2, (0, 1) at k 3 stride 2 on even maps, (2, 2) at k 5 stride
+# 1, (1, 2) at k 5 stride 2 on even maps -- at k 3 and 5, strides 1 and 2,
+# C on both routes (96, 144 and 20: four channels a thread; 6: one) and W
+# off every run; and pad None (x pre-padded, VALID: the JAX signature's
+# meaning) at stride 2 with int8 out on both routes
+DWC_CASES = [
+    (2, 11, 11, 96, 3, 1, (1, 1, 1, 1)),
+    (2, 12, 12, 144, 3, 2, (0, 1, 0, 1)),
+    (2, 9, 9, 96, 3, 2, (1, 1, 1, 1)),
+    (2, 9, 9, 144, 5, 1, (2, 2, 2, 2)),
+    (2, 10, 10, 96, 5, 2, (1, 2, 1, 2)),
+    (2, 11, 11, 20, 3, 1, (1, 1, 1, 1)),
+    (2, 12, 12, 20, 3, 2, (0, 1, 0, 1)),
+    (2, 9, 9, 20, 5, 1, (2, 2, 2, 2)),
+    (2, 10, 10, 20, 5, 2, (1, 2, 1, 2)),
+    (2, 11, 11, 6, 3, 1, (1, 1, 1, 1)),
+    (2, 10, 10, 6, 5, 2, (1, 2, 1, 2)),
+    (1, 7, 7, 6, 7, 1, (3, 3, 3, 3)),         # the scalar route's any k
+    (2, 12, 12, 96, 3, 2, None),
+    (2, 11, 11, 6, 5, 2, None),
+]
+
+
+def _dwc_operands(rng, n, h, w, c, k, dev):
+    x, wt = _q(rng, (n, h, w, c), dev), _q(rng, (k, k, c), dev)
+    return x, wt, _f(rng, (c,), dev), _f(rng, (c,), dev, -1.0, 1.0)
+
+
+def _forced_dwc(monkeypatch, run):
+    """dwc_pe.plan_dwc2d with its run replaced by `run` where the vector
+    route takes it at that k (None: as planned)."""
+    plan = dwc_pe.plan_dwc2d
+    launched = []
+
+    def forced(n, h, w, c, k, stride, aligned):
+        p = plan(n, h, w, c, k, stride, aligned)
+        if p.route != "scalar" and run in dwc_pe.DWC2D_RUNS[k]:
+            p = dwc_pe.dwc2d_launch(p.route, run, w, c)
+        launched.append((p.route, p.run))
+        return p
+    monkeypatch.setattr(dwc_pe, "plan_dwc2d", forced)
+    return launched
+
+
+@pytest.mark.parametrize("run", [None] + sorted(
+    {r for runs in dwc_pe.DWC2D_RUNS.values() for r in runs}))
+@pytest.mark.parametrize("n,h,w,c,k,stride,pad", DWC_CASES)
+def test_dwc(dev, monkeypatch, n, h, w, c, k, stride, pad, run):
+    """The unpadded map with its pad read in place (pad None: the map as
+    given, VALID), held against the plain version on the F.pad-ded map;
+    every run each vector route takes at its k."""
+    rng = np.random.default_rng(c + k + stride)
+    x, wt, wsc, bias = _dwc_operands(rng, n, h, w, c, k, dev)
+    kw = dict(a_scale=0.031, w_scale=wsc, out_scale=0.057, pad=pad)
+    launched = _forced_dwc(monkeypatch, run)
+    before = _build.COUNTS.get("dwc", 0)
+    got = dwc_pe.dwc2d(x, wt, bias, stride, "relu6", **kw)
+    assert _build.COUNTS["dwc"] == before + 1
+    assert launched[0][0] == ("vec4" if c % 4 == 0 and k in (3, 5)
+                              else "scalar")
+    _check(got, dwc_pe.dwc2d_plain(x, wt, bias, stride, "relu6", **kw))
+
+
+@pytest.mark.parametrize("c,shift,route", [(96, 1, "scalar"),
+                                           (96, 2, "scalar"),
+                                           (96, 4, "vec4")])
+def test_dwc_misaligned_view(dev, monkeypatch, c, shift, route):
+    """x a view `shift` bytes off its allocation: a view off 4 bytes takes
+    the scalar route."""
+    rng = np.random.default_rng(shift)
+    x, wt, wsc, bias = _dwc_operands(rng, 2, 12, 12, c, 3, dev)
+    buf = torch.empty(x.numel() + shift, dtype=torch.int8, device=dev)
+    view = buf[shift:].view(x.shape)
+    view.copy_(x)
+    launched = _forced_dwc(monkeypatch, None)
+    kw = dict(a_scale=0.031, w_scale=wsc, out_scale=0.057, pad=(0, 1, 0, 1))
+    got = dwc_pe.dwc2d(view, wt, bias, 2, "relu", **kw)
+    assert launched[0][0] == route
+    _check(got, dwc_pe.dwc2d_plain(x, wt, bias, 2, "relu", **kw))
+
+
+@pytest.mark.parametrize("c", [144, 6])
+def test_dwc_f32_out_and_valid(dev, c):
+    """f32 out (out_scale None), no bias, and pad None: x pre-padded, the
+    JAX signature's VALID meaning."""
+    rng = np.random.default_rng(c)
+    x, wt, wsc, _ = _dwc_operands(rng, 2, 10, 10, c, 3, dev)
+    for pad in ((1, 1, 1, 1), None):
+        kw = dict(a_scale=0.031, w_scale=wsc, pad=pad)
+        _check(dwc_pe.dwc2d(x, wt, None, 1, "none", **kw),
+               dwc_pe.dwc2d_plain(x, wt, None, 1, "none", **kw))
+
+
+@pytest.mark.parametrize("bias", [0.0, 2.0 ** -18, -(2.0 ** -18)])
+def test_dwc_requant_ties(dev, bias):
+    """Unit scales and out_scale 2 put every odd sum on a half-integer (a
+    bias of +-2^-18 just off it): the requant's multiply by the reciprocal
+    hands these to the division, and the codes stay bitwise."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-1, 2, (2, 9, 9, 96)).astype(np.int8)
+                         ).to(dev)
+    wt = torch.from_numpy(rng.integers(-1, 2, (3, 3, 96)).astype(np.int8)
+                          ).to(dev)
+    kw = dict(a_scale=1.0, w_scale=torch.ones(96, device=dev),
+              out_scale=2.0, pad=(1, 1, 1, 1))
+    b = torch.full((96,), bias, device=dev)
+    _check(dwc_pe.dwc2d(x, wt, b, 1, "none", **kw),
+           dwc_pe.dwc2d_plain(x, wt, b, 1, "none", **kw))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("bias", [0.0, 2.0 ** -16, -(2.0 ** -16)])
+def test_conv_pe_pool_requant_ties(dev, residual, bias):
+    """The pooled head's requants at mid_scale and add_scale 2 with unit
+    scales: every odd sum on a half-integer (or +-2^-16 off it)."""
+    rng = np.random.default_rng(6)
+    g, rows, k, n = 2, 49, 64, 128
+    a = torch.from_numpy(rng.integers(-1, 2, (g, rows, k)).astype(np.int8)
+                         ).to(dev)
+    b = torch.from_numpy(rng.integers(-1, 2, (k, n)).astype(np.int8)).to(dev)
+    kw = dict(mid_scale=2.0, out_scale=0.5)
+    if residual:
+        kw.update(residual=_q(rng, (g, rows, n), dev), res_scale=1.0,
+                  add_act="none", add_scale=2.0)
+    ones, bs = torch.ones((1, n), device=dev), torch.full((n,), bias,
+                                                           device=dev)
+    _check(conv_pe.matmul_int8_pool(a, b, 1.0, ones, bs, "none", **kw),
+           conv_pe.matmul_int8_pool_plain(a, b, 1.0, ones, bs, "none", **kw))
+
+
+def test_dwc_routes_covered():
+    """Every (route, run) plan_dwc2d names at a zoo DWC shape (224 px,
+    waves of 4; 64 px, batch 2) is among those test_dwc launches, and
+    test_dwc launches the vector route at every k, stride and run the
+    kernel instantiates (DWC2D_RUNS[k]; CPU-side: the planner alone)."""
+    import dataclasses
+    from repro_torch.compiler.graph import dwc_input_shapes
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.kernels import ops
+
+    def plan_of(n, h, w, c, k, stride, pad, aligned=16):
+        top, bottom, left, right = pad or (0, 0, 0, 0)
+        ho = (h + top + bottom - k) // stride + 1
+        wo = (w + left + right - k) // stride + 1
+        return dwc_pe.plan_dwc2d(n, ho, wo, c, k, stride, aligned)
+
+    zoo = set()
+    for cfg in CNN_ZOO.values():
+        for hw, n in ((224, 4), (64, 2)):
+            for h, w, c, k, s in dwc_input_shapes(
+                    dataclasses.replace(cfg, input_hw=hw)):
+                pad = ops._same_pad(h, k, s) + ops._same_pad(w, k, s)
+                p = plan_of(n, h, w, c, k, s, pad)
+                zoo.add((p.route, p.run, k))
+    forced = {(p.route, r, k, s) for n, h, w, c, k, s, pad in DWC_CASES
+              for p in [plan_of(n, h, w, c, k, s, pad)]
+              if p.route != "scalar" for r in dwc_pe.DWC2D_RUNS[k]}
+    tested = ({(p.route, p.run, case[4]) for case in DWC_CASES
+               for p in [plan_of(*case)]}
+              | {(route, r, k) for route, r, k, _ in forced})
+    assert zoo <= tested
+    assert forced == {("vec4", r, k, s)
+                      for k, runs in dwc_pe.DWC2D_RUNS.items()
+                      for r in runs for s in (1, 2)}
+
+
+@pytest.mark.parametrize("k,run", [(5, 2), (5, 4), (3, 3)])
+def test_dwc_refuses_a_run_not_built(dev, monkeypatch, k, run):
+    """The kernel refuses a vector run it has no instantiation for (k 5
+    takes run 1 alone), and the wrapper raises."""
+    rng = np.random.default_rng(k + run)
+    x, wt, wsc, bias = _dwc_operands(rng, 2, 10, 10, 96, k, dev)
+    monkeypatch.setattr(dwc_pe, "plan_dwc2d",
+                        lambda n, h, w, c, *a: dwc_pe.dwc2d_launch(
+                            "vec4", run, w, c))
+    with pytest.raises(RuntimeError):
+        dwc_pe.dwc2d(x, wt, bias, 1, "relu6", a_scale=0.031, w_scale=wsc,
+                     out_scale=0.057, pad=(k // 2,) * 4)
 
 
 def test_low_channel(dev):

@@ -273,13 +273,17 @@ def test_dwc2d_plain_matches_ref(stride, os):
     _assert_equal(got, want)
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-def test_dwc2d_ops_matches_ref_and_pallas(stride):
+@pytest.mark.parametrize("k,stride,c", [(3, 1, 40), (3, 2, 40), (5, 1, 128),
+                                        (5, 2, 128)])
+def test_dwc2d_ops_matches_ref_and_pallas(k, stride, c):
     """ops.dwc2d with SAME padding, static int8 input: port ref / cuda
     backends bitwise to the reference's ref; the Pallas kernel (a_scale
-    folded into w_scale first) within one int8 code."""
-    c, hw = 40, 10
-    x, w, wsc, bias = _dwc_case(11 + stride, 2, hw, c, 3)
+    folded into w_scale first) within one int8 code.  The map is even, so
+    stride 2 gives the uneven pads (0, 1) at k 3 and (1, 2) at k 5; the cuda
+    backend hands the wrapper the unpadded map and these pads.  C = 40 is
+    off the reference's 128 lanes."""
+    hw = 10
+    x, w, wsc, bias = _dwc_case(11 + stride + k, 2, hw, c, k)
     wq_j = JQ(jnp.asarray(w), jnp.asarray(wsc.reshape(1, 1, c)))
     args = (jnp.asarray(bias), stride, "SAME", "relu6")
     want = j_ops.dwc2d(JQ(jnp.asarray(x), 0.029), wq_j, *args, J_REF,
@@ -292,6 +296,98 @@ def test_dwc2d_ops_matches_ref_and_pallas(stride):
                           "relu6", cfg, out_scale=0.061)
         _assert_equal(got, want)
         _assert_within_one_code(got, pallas)
+
+
+# (k, stride, H = W, C, pad, a_scale, out_scale): every SAME pad the zoo
+# produces; the padded maps and scales are those test_dwc2d_plain_matches_ref
+# (k 3) and test_dwc2d_ops_matches_ref_and_pallas (k 5, C = 128: no lane
+# padding) hand the reference, so eager JAX reuses their compiled ops
+DWC_PADS = [(3, 1, 9, 40, (1, 1, 1, 1), 0.031, 0.057),
+            (3, 2, 10, 40, (0, 1, 0, 1), 0.031, 0.057),
+            (5, 1, 10, 128, (2, 2, 2, 2), 0.029, 0.061),
+            (5, 2, 10, 128, (1, 2, 1, 2), 0.029, 0.061)]
+
+
+@pytest.mark.parametrize("k,stride,hw,c,pad,a_scale,os", DWC_PADS)
+def test_dwc2d_pad_matches_ref(k, stride, hw, c, pad, a_scale, os):
+    """dwc_pe.dwc2d(x, ..., pad=p) on CPU tensors (its plain version: the
+    map F.pad-ded, then ref.dwc2d) bitwise to the reference's ref.dwc2d on
+    the numpy-padded map."""
+    x, w, wsc, bias = _dwc_case(hw + c + k + stride, 2, hw, c, k)
+    top, bottom, left, right = pad
+    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+    want = j_ref.dwc2d(jnp.asarray(xp), jnp.asarray(w), jnp.asarray(bias),
+                       stride, "relu6", a_scale=a_scale,
+                       w_scale=jnp.asarray(wsc), out_scale=os)
+    got = dwc_pe.dwc2d(_t(x), _t(w), _t(bias), stride, "relu6",
+                       a_scale=a_scale, w_scale=_t(wsc), out_scale=os,
+                       pad=pad)
+    _assert_equal(got, want)
+
+
+# MobileNetV2's 17 DWC layers at 224 px in a wave of 4: the run a thread
+# takes (scripts/cnn_probe.py timed every run at every layer; the planned
+# one was the fastest or within 2% of it at each)
+MOBILENET_V2_RUNS = [4, 4, 4, 2, 2, 2, 1, 1, 1, 1, 1, 2, 2, 1, 1, 1, 1]
+
+
+def test_dwc2d_plan_zoo():
+    """plan_dwc2d (pure Python) at every zoo DWC layer at 224 px, a wave of
+    4: the four-channel route everywhere (C % 4 == 0, k 3 or 5, stride 1 or
+    2), at k 3 the longest run whose grid keeps DWC2D_MIN_THREADS threads
+    and at k 5 run 1, a grid that covers every (channel group, run) of a
+    row once; MobileNetV2's runs as measured; and the scalar route for a
+    view off 4 bytes."""
+    import dataclasses
+    from repro_torch.compiler.graph import dwc_input_shapes
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    mnv2 = []
+    for name, cfg in sorted(CNN_ZOO.items()):
+        for h, w, c, k, s in dwc_input_shapes(
+                dataclasses.replace(cfg, input_hw=224)):
+            pad = t_ops._same_pad(h, k, s) + t_ops._same_pad(w, k, s)
+            ho = (h + pad[0] + pad[1] - k) // s + 1
+            wo = (w + pad[2] + pad[3] - k) // s + 1
+            p = dwc_pe.plan_dwc2d(4, ho, wo, c, k, s, 16)
+            assert p.route == "vec4"
+            runs = dwc_pe.DWC2D_RUNS[k]
+            fits = [r for r in runs
+                    if 4 * ho * (c // 4) * -(-wo // r)
+                    >= dwc_pe.DWC2D_MIN_THREADS]
+            assert p.run == (max(fits) if fits else 1)
+            assert k == 3 or p.run == 1
+            threads = c // 4 * -(-wo // p.run)
+            assert (p.blocks - 1) * dwc_pe.DWC2D_THREADS < threads \
+                <= p.blocks * dwc_pe.DWC2D_THREADS
+            assert dwc_pe.plan_dwc2d(4, ho, wo, c, k, s, 2).route == "scalar"
+            if name == "mobilenetv2":
+                mnv2.append(p.run)
+    assert mnv2 == MOBILENET_V2_RUNS
+
+
+@pytest.mark.parametrize("name", ["mobilenetv2", "efficientnet"])
+def test_dwc_input_shapes_match_a_program_run(name, monkeypatch):
+    """graph.dwc_input_shapes, whence the planner tests and the probe take
+    the zoo's DWC shapes, equals what a program run hands ops.dwc2d (and
+    so the DWC PE): the float program at 32 px on zero weights, each call's
+    map, k and stride."""
+    import dataclasses
+    from repro_torch import compiler as tc
+    from repro_torch.compiler.graph import dwc_input_shapes
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.models.cnn import cnn_schema
+    from repro_torch.models.params import _map
+    cfg = dataclasses.replace(CNN_ZOO[name], input_hw=32)
+    params = _map(cnn_schema(cfg), lambda spec: torch.zeros(spec.shape))
+    seen, plain = [], t_ops.dwc2d
+
+    def spy(x, w, bias, stride, *a, **kw):
+        seen.append(tuple(x.shape[1:]) + (w.shape[0], stride))
+        return plain(x, w, bias, stride, *a, **kw)
+    monkeypatch.setattr(t_ops, "dwc2d", spy)
+    tc.execute(tc.compile_cnn(cfg, fuse=False), params,
+               torch.zeros((1, 32, 32, 3)), T_REF)
+    assert seen == dwc_input_shapes(cfg)
 
 
 # ---------------------------------------------------------------------------
