@@ -32,10 +32,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      calibration batch), run through compiler.execute on the card with the
      counters zeroed around it (1/53/16 per run): its logits must equal the
      fused program's served logits and the backend="ref" run bit for bit;
-     the misc_add kernel phase at its shapes;
+     the misc_add kernel phase at its shapes, each add's plan logged
+     (misc_pe.plan_add: the 16-byte vector route or the scalar one);
   6. avgpool2d, which no model path reaches: ops.avgpool2d on the CUDA
-     backend at [4,56,56,256] 3/2 and [4,7,7,2048] 7/1, counted, then its
-     kernel phase;
+     backend at [4,56,56,256] 3/2 and [4,7,7,2048] 7/1, counted, its plans
+     logged (misc_pe.plan_avgpool: channels a thread, window, block), then
+     its kernel phase;
   7. a zoo sweep: every CNN_ZOO model at 64 px, batch 2, fused and
      unfused on one calibration, on the CUDA backend against
      backend="ref" on the card and unfused against fused, bit for bit,
@@ -755,8 +757,10 @@ def log_plans(label, calls):
     copy widths, epilogue placement) and of each int4 one (conv_pe.plan_w4:
     route, tile, groups a chunk, copy widths), with its
     call count: a run shows where each route is taken; and of each DWC
-    call (dwc_pe.plan_dwc2d: route, outputs a thread)."""
-    from repro_torch.kernels import conv_pe, dwc_pe
+    call (dwc_pe.plan_dwc2d: route, outputs a thread); of each MISC add
+    (misc_pe.plan_add: route, group, grid) and average pool
+    (misc_pe.plan_avgpool: channels a thread, window, block)."""
+    from repro_torch.kernels import conv_pe, dwc_pe, misc_pe
     shapes = {}
     for name in ("conv_pe", "conv_pe_res", "conv_pe_w4", "conv_pe_w4_res"):
         for args, _ in calls.get(name, ()):
@@ -797,6 +801,39 @@ def log_plans(label, calls):
         log(f"plan {label} dwc2d [{n}, {h}, {wd}, {c}] k {k} stride {stride} "
             f"pad {pad} -> [{ho}, {wo}] x{count}: {p.route}, {p.run} "
             f"outputs a thread, grid {p.blocks} x {ho} x {n}")
+    adds = {}
+    for args, kwargs in calls.get("misc_add", ()):
+        a, b = args[0], args[1]
+        scale = kwargs.get("out_scale")
+        kind = (f"{'f32' if a.is_floating_point() else 'int8'} + "
+                f"{'f32' if b.is_floating_point() else 'int8'} -> "
+                f"{'f32' if scale is None else 'int8'}")
+        p = misc_pe.plan_add(
+            a.numel(), a.is_floating_point(), b.is_floating_point(),
+            None if scale is None else float(scale),
+            min(conv_pe.byte_align(a), conv_pe.byte_align(b)))
+        key = (tuple(a.shape), kind, p)
+        adds[key] = adds.get(key, 0) + 1
+    for (shape, kind, p), count in adds.items():
+        key = f"misc_add {p.route} {p.vec}"
+        paths[key] = paths.get(key, 0) + count
+        log(f"plan {label} misc_add {list(shape)} {kind} x{count}: "
+            f"{p.route}, {p.vec} elements a group, {p.blocks} blocks x "
+            f"{p.steps} step(s)")
+    pools = {}
+    for args, _ in calls.get("avgpool2d", ()):
+        x, k, stride = args[0], args[1], args[2]
+        key = (tuple(x.shape), k, stride, conv_pe.byte_align(x),
+               x.is_floating_point())
+        pools[key] = pools.get(key, 0) + 1
+    for (shape, k, stride, align, in_f32), count in pools.items():
+        p = misc_pe.plan_avgpool(*shape, k, stride, align, in_f32)
+        key = f"avgpool2d {p.lanes} lanes"
+        paths[key] = paths.get(key, 0) + count
+        log(f"plan {label} avgpool2d {list(shape)} {k}/{stride} "
+            f"{'f32' if in_f32 else 'int8'} x{count}: {p.lanes} channels a "
+            f"thread, window {p.kt or 'at run time'}, {p.blocks} blocks of "
+            f"{p.block}")
     log(f"plan {label}: calls by path {json.dumps(paths, sort_keys=True)}")
 
 
@@ -1103,6 +1140,7 @@ def avgpool_path(torch, eng, results):
         if tuple(o.shape) != want or not torch.isfinite(o).all():
             fail(f"avgpool2d {shape} {k}/{s}: got {tuple(o.shape)}")
     calls = capture_calls(torch, run)
+    log_plans("avgpool", calls)
     with torch.inference_mode():
         r = kernel_phase(torch, "avgpool2d", calls["avgpool2d"])
     results["avgpool2d"] = r

@@ -2,6 +2,7 @@
 """The DWC PE's routes and runs and the pooled head's strips, on the card.
 
     PYTHONPATH=src python scripts/cnn_probe.py [--parent DIR] [--parts]
+    PYTHONPATH=src python scripts/cnn_probe.py --misc [--parent DIR] [--parts]
 
 dwc2d: at MobileNetV2's 17 DWC layers (224 px, a wave of 4 images; each
 call its own seeded unpadded map, weights and scales, its SAME pads read in
@@ -39,6 +40,26 @@ into build/cnn_probe_<n>.so, bound in place of the library and timed.  The
 dwc2d variants run on the pre-padded maps (pad None), so the one that cuts
 the halo predication reads only inside the map.  A cut kernel's output is
 wrong; only its time is read.
+
+--misc: the MISC core instead.  misc_add at ResNet50's 16 unfused residual
+adds (224 px, a wave of 4: int8 + int8 -> int8, relu) twice -- seeded
+random codes, and the adds one run of the real unfused program makes, as
+chip_smoke.py records them, whose share of values near a tie of the
+requant is logged -- and at gemma2-2b's 52 post-norm adds of a decode
+step ([4, 2304]) and of a 64-token prefill of 4 slots ([256, 2304]), f32
+stream + int8 edge -> f32, each call its own seeded operands: the planned
+plan, the vector route at each grid cap of ADD_CAPS blocks an SM
+(`misc_pe.add_launch`, `plan_add` replaced for the call) and the scalar
+route, each held bit for bit against the plain version and timed as
+above; with --parts, variants of csrc/misc_pe.cu with one part of the
+vector add cut out (ADD_PARTS) timed on the same calls.  avgpool2d at
+chip_smoke's AVGPOOL shapes (f32 maps) and at a k 2 / 2 pool of the [4,
+56, 56, 256] map, which reads each input once (the most that staging the
+k 3 / 2 rows in shared memory could save is the difference): the planned
+plan and every channels-a-thread and block size (`misc_pe.pool_launch`),
+bit for bit, beside F.avg_pool2d.  With --parent, that tree's
+csrc/misc_pe.cu is built and timed on the same calls (an older C
+interface without the plan arguments is called directly).
 
 Needs one GPU; prints the card's name and power limit first.
 """
@@ -119,6 +140,28 @@ POOL_PARTS = (
      [("  constexpr int BN = PBN, THREADS = 4 * BN, NI = 4;",
        "  if (rows > 0) return;\n"
        "  constexpr int BN = PBN, THREADS = 4 * BN, NI = 4;")]),
+)
+
+
+# --misc: the vector add's grid caps timed (blocks an SM; 0: none), and
+# with --parts the add's parts cut out (as DWC_PARTS)
+ADD_CAPS = (0, 1, 2, 4, 8)
+ADD_PARTS = (
+    ("nothing (as built)", []),
+    ("the arithmetic (a's and b's words xor-ed into out's)",
+     [("  return apply_act(\n"
+       "      __fadd_rn(__fmul_rn(elem(pa, e), sa), __fmul_rn(elem(pb, e), "
+       "sb)),\n      ACT);",
+       "  return __uint_as_float(pa.u32(e * sizeof(TA) / 4) ^\n"
+       "                         pb.u32(e * sizeof(TB) / 4));"),
+      ("          requant_biased(add_value<ACT>(pa, pb, e, sa, sb), rcp, "
+       "near));",
+       "          add_value<ACT>(pa, pb, e, sa, sb));\n      near = false;")]),
+    ("the near-tie redo (the clamped, rounded product alone)",
+     [("      ties |= near ? 1u << e : 0u;\n", "")]),
+    ("everything (the kernel returns at once)",
+     [("  const size_t groups = n / V;\n",
+       "  if (n) return;\n  const size_t groups = n / V;\n")]),
 )
 
 
@@ -326,6 +369,214 @@ def pool(torch, smoke, _build, parent):
                 f"{'bitwise' if same else 'DIFFERS'}")
 
 
+def add_sets(torch):
+    """[(label, [(args, kwargs)])]: ResNet50's unfused adds, gemma2's adds
+    at a decode step and at a prefill."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+
+    def q(shape):
+        return dev(rng.integers(-127, 128, shape).astype(np.int8))
+    resnet = []
+    for hw, c, count in ((56, 256, 3), (28, 512, 4), (14, 1024, 6),
+                         (7, 2048, 3)):
+        for _ in range(count):
+            shape = (4, hw, hw, c)
+            resnet.append(((q(shape), q(shape), 0.0311, 0.0529, "relu"),
+                           dict(out_scale=0.0437)))
+    out = [("ResNet50 unfused run", resnet),
+           ("ResNet50 unfused program", program_adds(torch))]
+    for label, rows in (("gemma2 decode step", 4), ("gemma2 prefill", 256)):
+        calls = []
+        for _ in range(52):
+            x = dev(rng.normal(size=(rows, 2304)).astype(np.float32))
+            calls.append(((x, q((rows, 2304)), 1.0, 0.0173, "none"),
+                          dict(out_scale=None)))
+        out.append((label, calls))
+    return out
+
+
+def program_adds(torch):
+    """The 16 misc_add calls of one ResNet50 unfused program run, recorded
+    as chip_smoke.py records them: 224 px, seeded weights, calibrated on
+    one seeded batch of 4, a wave of 4 seeded images."""
+    import numpy as np
+    import chip_smoke as smoke
+    from repro_torch import compiler
+    from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.core import engine as eng_lib
+    from repro_torch.models.cnn import cnn_schema
+    from repro_torch.models.params import init_params
+    cfg = CNN_ZOO["resnet50"]
+    params = init_params(cnn_schema(cfg), torch.Generator().manual_seed(0),
+                         device="cuda")
+    rng = np.random.default_rng(1)
+    hw = cfg.input_hw
+    calib = (rng.normal(size=(4, hw, hw, 3)) * 0.5).astype(np.float32)
+    images = (rng.normal(size=(8, hw, hw, 3)) * 0.5).astype(np.float32)
+    eng = eng_lib.paper_engine(backend="cuda")
+    program = compiler.compile_calibrated(
+        cfg, params, [torch.from_numpy(calib).cuda()], fuse=False)
+    qparams = compiler.fold_weight_layouts(
+        program.graph, eng_lib.quantize_params(params, eng))
+    wave = torch.from_numpy(images[:4]).cuda()
+    return smoke.capture_calls(torch, lambda: compiler.execute(
+        program, qparams, wave, eng))["misc_add"]
+
+
+def near_ties(torch, a, b, sa, sb, act, out_scale=None, **_):
+    """The share of a requantized add's values within 2^-14 of a
+    half-integer of the scale after the multiply by its reciprocal, and of
+    16-value groups holding one (the groups the kernel redoes with the
+    division), in the kernel's f32 arithmetic."""
+    f = torch.float32
+    x = a.to(f) * torch.tensor(sa, dtype=f).cuda() + \
+        b.to(f) * torch.tensor(sb, dtype=f).cuda()
+    if act == "relu":
+        x = torch.clamp_min(x, 0)
+    os_ = torch.tensor(out_scale, dtype=f).cuda()
+    p = x * (torch.ones((), dtype=f).cuda() / os_)
+    c = torch.tensor(12582912.0, dtype=f).cuda()
+    r = (p.clamp(-127, 127) + c) - c
+    d = (p - r).abs()
+    near = ~((d < 0.5 - 2 ** -14) | (d > 0.5 + 2 ** -14))
+    groups = near.reshape(-1)[:near.numel() // 16 * 16].reshape(-1, 16)
+    return float(near.float().mean()), float(groups.any(1).float().mean())
+
+
+def bound_ms(torch, smoke, name, calls, fn):
+    total = 0.0
+    for a, kw in calls:
+        out = fn(*a, **kw)
+        t_bytes = smoke.call_bytes(torch, name, a, kw, [out]) / \
+            smoke.PEAK_BYTES
+        ops, peak = smoke.call_ops(name, a, kw, out)
+        total += max(t_bytes, ops / peak)
+    return total * 1e3
+
+
+@contextlib.contextmanager
+def forcing(mod, name, plan_of):
+    """mod.<name> (a planner) replaced by plan_of(*its args)."""
+    orig = getattr(mod, name)
+    setattr(mod, name, plan_of)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def misc(torch, smoke, _build, parent):
+    import torch.nn.functional as F
+    import kernel_variants
+    from repro_torch.kernels import misc_pe
+    from repro_torch.kernels import _build as b_
+
+    def timed(what, label, calls, fn, wants):
+        same = sum(torch.equal(fn(*a, **kw), w)
+                   for (a, kw), w in zip(calls, wants))
+        ms, wall = smoke.cuda_ms(torch, lambda: [fn(*a, **kw)
+                                                 for a, kw in calls], REPS)
+        log(f"misc {label}: {what}: {ms:.4f} ms ({wall:.4f}), {same} of "
+            f"{len(calls)} bitwise")
+
+    for label, calls in add_sets(torch):
+        wants = [misc_pe.misc_add_plain(*a, **kw) for a, kw in calls]
+        a0 = calls[0][0]
+        p0 = misc_pe.plan_add(a0[0].numel(), a0[0].is_floating_point(),
+                              a0[1].is_floating_point(),
+                              calls[0][1].get("out_scale"), 16)
+        b = bound_ms(torch, smoke, "misc_add", calls, misc_pe.misc_add_plain)
+        log(f"misc {label}: misc_add x{len(calls)}, bound {b:.4f} ms; "
+            f"planned {p0}")
+        timed("planned", label, calls, misc_pe.misc_add, wants)
+        each = [smoke.cuda_ms(torch, lambda a=a, kw=kw:
+                              misc_pe.misc_add(*a, **kw), REPS)[0] * 1e3
+                for a, kw in calls]
+        log(f"misc {label}: us a call as planned: "
+            + " ".join(f"{t:.2f}" for t in each))
+        if calls[0][1].get("out_scale") is not None:
+            ties = [near_ties(torch, *a, **kw) for a, kw in calls]
+            log(f"misc {label}: values / groups near a tie: "
+                + " ".join(f"{100 * v:.3f}%/{100 * g:.2f}%" for v, g in ties)
+                + f"; operands {type(calls[0][0][2]).__name__} scales, "
+                f"dtypes {calls[0][0][0].dtype}/{calls[0][0][1].dtype}")
+        for vec, cap in [(p0.vec, c) for c in ADD_CAPS] + [(1, 0)]:
+            with forcing(misc_pe, "plan_add",
+                         lambda n, *_, v=vec, c=cap:
+                         misc_pe.add_launch(n, v, c)):
+                timed(f"{'scalar' if vec == 1 else 'vec'} {vec}"
+                      f"{f', {cap} blocks an SM at most' if cap else ''}",
+                      label, calls, misc_pe.misc_add, wants)
+        if "--parts" in sys.argv:
+            libs = kernel_variants.edited(_build, "misc_pe.cu", ADD_PARTS,
+                                          "cnn_probe_misc", misc_pe._bind)
+            for what, lib in libs:
+                with kernel_variants.bound(_build, "misc_pe", lib):
+                    ms, wall = smoke.cuda_ms(torch, lambda: [
+                        misc_pe.misc_add(*a, **kw) for a, kw in calls], REPS)
+                log(f"misc {label}: parts, cut {what}: {ms:.4f} ms "
+                    f"({wall:.4f})")
+        if parent is not None and hasattr(parent, "planned"):
+            with kernel_variants.bound(_build, "misc_pe", parent):
+                timed("parent kernel", label, calls, misc_pe.misc_add, wants)
+        elif parent is not None:
+            def old(a, b, sa, sb, act, out_scale=None, **_):
+                out = torch.empty(a.shape, device="cuda",
+                                  dtype=torch.int8 if out_scale is not None
+                                  else torch.float32)
+                b_.check(parent.misc_add(
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                    int(a.is_floating_point()), int(b.is_floating_point()),
+                    sa, sb, b_.act_code(act), int(out_scale is not None),
+                    1.0 if out_scale is None else out_scale,
+                    b_.stream_ptr(a)), "parent misc_add")
+                return out
+            timed("parent kernel", label, calls, old, wants)
+
+    rng = __import__("numpy").random.default_rng(2)
+    shapes = list(smoke.AVGPOOL) + [((4, 56, 56, 256), 2, 2)]
+    for shape, k, s in shapes:
+        x = torch.from_numpy(rng.normal(size=shape).astype("float32")).cuda()
+        calls = [((x, k, s), {})]
+        wants = [misc_pe.avgpool2d_plain(x, k, s)]
+        p0 = misc_pe.plan_avgpool(*shape, k, s, 16, True)
+        label = f"avgpool2d {list(shape)} {k}/{s}"
+        b = bound_ms(torch, smoke, "avgpool2d", calls,
+                     misc_pe.avgpool2d_plain)
+        log(f"misc {label}: bound {b:.4f} ms; planned {p0}")
+        timed("planned", label, calls, misc_pe.avgpool2d, wants)
+        outputs = wants[0].numel()
+        for lanes in (1, 4):
+            for block in misc_pe.POOL_BLOCKS:
+                with forcing(misc_pe, "plan_avgpool",
+                             lambda *_, l=lanes, bl=block:
+                             misc_pe.pool_launch(outputs, l, k, bl)):
+                    timed(f"{lanes} lanes, blocks of {block}", label, calls,
+                          misc_pe.avgpool2d, wants)
+        xf = x.permute(0, 3, 1, 2)
+        ms, wall = smoke.cuda_ms(torch, lambda: F.avg_pool2d(xf, k, s), REPS)
+        log(f"misc {label}: library F.avg_pool2d (channels_last) {ms:.4f} "
+            f"ms ({wall:.4f})")
+        if parent is not None and hasattr(parent, "planned"):
+            with kernel_variants.bound(_build, "misc_pe", parent):
+                timed("parent kernel", label, calls, misc_pe.avgpool2d,
+                      wants)
+        elif parent is not None:
+            def old(x, k, s):
+                n, h, w, c = x.shape
+                ho, wo = (h - k) // s + 1, (w - k) // s + 1
+                out = torch.empty((n, ho, wo, c), device="cuda")
+                b_.check(parent.misc_avgpool2d(
+                    x.data_ptr(), out.data_ptr(), n, h, w, c, k, s, ho, wo, 1,
+                    b_.stream_ptr(x)), "parent avgpool2d")
+                return out
+            timed("parent kernel", label, calls, old, wants)
+
+
 def bind_parent(lib):
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if hasattr(lib, "dwc_pe_dwc2d"):
@@ -335,6 +586,12 @@ def bind_parent(lib):
         lib.conv_pe_pool.argtypes = [v, v, v, i, i, i, i, f, v, v, i, f, v,
                                      f, i, f, f, i, f, v]
         lib.conv_pe_pool.restype = i
+    if hasattr(lib, "misc_add"):                # before the MISC planners
+        lib.misc_add.argtypes = [v, v, v, ctypes.c_longlong, i, i, f, f, i,
+                                 i, f, v]
+        lib.misc_add.restype = i
+        lib.misc_avgpool2d.argtypes = [v, v] + [i] * 9 + [v]
+        lib.misc_avgpool2d.restype = i
 
 
 def parts(torch, smoke, _build):
@@ -385,20 +642,28 @@ def main() -> int:
         from pathlib import Path
         csrc = Path(args[args.index("--parent") + 1]) / "src" / \
             "repro_torch" / "csrc"
+        names = ("misc_pe",) if "--misc" in args else ("dwc_pe", "conv_pe")
         jobs = [(name,) + kernel_variants.start(
                     _build, f"cnn_probe_parent_{name}", csrc / f"{name}.cu")
-                for name in ("dwc_pe", "conv_pe")]
+                for name in names]
         for name, out, proc in jobs:
             parent[name] = kernel_variants.finish(out, proc,
                                                   f"the parent's {name}")
-            if name == "dwc_pe" and "int pt, int pl" in (
-                    csrc / "dwc_pe.cu").read_text():
+            text = (csrc / f"{name}.cu").read_text()
+            if name == "dwc_pe" and "int pt, int pl" in text:
                 from repro_torch.kernels import dwc_pe
                 dwc_pe._bind(parent[name])
                 parent[name].in_place = True
+            elif name == "misc_pe" and "int vec, int blocks" in text:
+                from repro_torch.kernels import misc_pe
+                misc_pe._bind(parent[name])
+                parent[name].planned = True
             else:
                 bind_parent(parent[name])
     with torch.inference_mode():
+        if "--misc" in args:
+            misc(torch, smoke, _build, parent.get("misc_pe"))
+            return 0
         if "--parts" in args:
             parts(torch, smoke, _build)
             return 0

@@ -428,6 +428,205 @@ def test_avgpool2d(dev, shape, window, stride, dtype):
            misc_pe.avgpool2d_plain(x, window, stride))
 
 
+@pytest.fixture
+def plans(monkeypatch):
+    """The plans the MISC wrappers took in the test, in call order."""
+    seen = []
+    for name in ("plan_add", "plan_avgpool"):
+        orig = getattr(misc_pe, name)
+
+        def spy(*args, _orig=orig):
+            seen.append(_orig(*args))
+            return seen[-1]
+        monkeypatch.setattr(misc_pe, name, spy)
+    return seen
+
+
+def _add_operands(rng, kind, shape, dev):
+    """(a, b) of an add kind: "int8" both codes, "f32" both floats,
+    "f32+int8" / "int8+f32" one of each."""
+    if kind == "int8":
+        return _q(rng, shape, dev), _q(rng, shape, dev)
+    if kind == "f32":
+        return (_f(rng, shape, dev, -2.0, 2.0),
+                _f(rng, shape, dev, -2.0, 2.0))
+    a, b = _f(rng, shape, dev, -2.0, 2.0), _q(rng, shape, dev)
+    return (b, a) if kind == "int8+f32" else (a, b)
+
+
+# the vector route's lengths around its groups (16 codes, 4 elements), every
+# operand kind, both outputs; the grid also capped at one block an SM and
+# uncapped
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4097])
+@pytest.mark.parametrize("kind,out_scale", [("int8", 0.0437),
+                                            ("f32+int8", None),
+                                            ("int8+f32", 0.0437),
+                                            ("f32", None), ("int8", None)])
+def test_misc_add_vector_lengths(dev, plans, n, kind, out_scale):
+    rng = np.random.default_rng(n)
+    a, b = _add_operands(rng, kind, (n,), dev)
+    kw = dict(sa=0.0311, sb=0.0529, act="relu", out_scale=out_scale)
+    want = misc_pe.misc_add_plain(a, b, **kw)
+    _check(misc_pe.misc_add(a, b, **kw), want)
+    assert plans[-1].route == "vec"
+    assert plans[-1].vec == (16 if kind == "int8" else 4)
+    planned = misc_pe.plan_add
+    for cap in (1, 0):
+        forced = misc_pe.add_launch(n, plans[-1].vec, cap)
+        misc_pe.plan_add = lambda *args, _p=forced: _p
+        try:
+            _check(misc_pe.misc_add(a, b, **kw), want)
+        finally:
+            misc_pe.plan_add = planned
+
+
+# the models' adds: gemma2's post-norm adds at a decode step and a prefill
+# (f32 stream + int8 edge -> f32), ResNet50's first-stage residual add
+@pytest.mark.parametrize("shape,kind,sa,sb,act,out_scale", [
+    ((4, 2304), "f32+int8", 1.0, 0.0173, "none", None),
+    ((256, 2304), "f32+int8", 1.0, 0.0173, "none", None),
+    ((4, 56, 56, 256), "int8", 0.0311, 0.0529, "relu", 0.0437)])
+def test_misc_add_model_shapes(dev, plans, shape, kind, sa, sb, act,
+                               out_scale):
+    rng = np.random.default_rng(shape[0])
+    a, b = _add_operands(rng, kind, shape, dev)
+    kw = dict(sa=sa, sb=sb, act=act, out_scale=out_scale)
+    want = misc_pe.misc_add_plain(a, b, **kw)
+    _check(misc_pe.misc_add(a, b, **kw), want)
+    assert plans[-1].route == "vec"
+    # one block an SM: a thread strides over several groups, each step's
+    # words loaded while the last step adds
+    forced = misc_pe.add_launch(a.numel(), plans[-1].vec, 1)
+    planned = misc_pe.plan_add
+    misc_pe.plan_add = lambda *args: forced
+    try:
+        _check(misc_pe.misc_add(a, b, **kw), want)
+    finally:
+        misc_pe.plan_add = planned
+    assert forced.steps > 1 or a.numel() < 132 * 256 * forced.vec
+
+
+# views whose first element is off 16 bytes (a storage offset of 1 or 3
+# codes, 1 float) on either operand take the scalar route
+@pytest.mark.parametrize("kind,which,offset", [
+    ("int8", "a", 1), ("int8", "b", 3), ("f32", "a", 1), ("f32+int8", "b", 1),
+    ("f32+int8", "a", 1)])
+def test_misc_add_offset_views(dev, plans, kind, which, offset):
+    rng = np.random.default_rng(offset)
+    n = 4097
+    a, b = _add_operands(rng, kind, (n + offset,), dev)
+    a, b = (a[offset:], b[:n]) if which == "a" else (a[:n], b[offset:])
+    kw = dict(sa=0.0311, sb=0.0529, act="relu6", out_scale=0.0437)
+    _check(misc_pe.misc_add(a, b, **kw), misc_pe.misc_add_plain(a, b, **kw))
+    assert plans[-1].route == "scalar"
+
+
+@pytest.mark.parametrize("out_scale", [0.25, 0.3])
+def test_misc_add_requant_ties(dev, plans, out_scale):
+    """Sums on half-integers of the output scale: with sa = sb = os / 2 an
+    odd a + b lands on (a + b) / 2 of os, exactly at os = 0.25 and within
+    ulps at 0.3, so the requant's reciprocal falls back to the division
+    at every odd sum; f32 operands put at (k + 0.5) x os likewise."""
+    rng = np.random.default_rng(7)
+    half = float(np.float32(out_scale) / np.float32(2))
+    a, b = _q(rng, (4096 + 5,), dev), _q(rng, (4096 + 5,), dev)
+    kw = dict(sa=half, sb=half, act="none", out_scale=out_scale)
+    _check(misc_pe.misc_add(a, b, **kw), misc_pe.misc_add_plain(a, b, **kw))
+    ks = rng.integers(-130, 130, 4096 + 3).astype(np.float32)
+    af = torch.from_numpy((ks + np.float32(0.5)) * np.float32(out_scale)
+                          ).to(dev)
+    bf = torch.zeros_like(af)
+    kw = dict(sa=1.0, sb=1.0, act="none", out_scale=out_scale)
+    _check(misc_pe.misc_add(af, bf, **kw),
+           misc_pe.misc_add_plain(af, bf, **kw))
+    assert [p.route for p in plans] == ["vec", "vec"]
+
+
+@pytest.mark.parametrize("out_scale,route", [(3e38, "scalar"),
+                                             (1e-39, "scalar"),
+                                             (2.0 ** 100, "vec"),
+                                             (2.0 ** -100, "vec")])
+def test_misc_add_scale_without_normal_reciprocal(dev, plans, out_scale,
+                                                  route):
+    """An output scale whose reciprocal is not a normal float (3e38: a
+    subnormal one; 1e-39, itself subnormal: inf) takes the scalar route and
+    its division; the vector route's exact requant holds to the ends of
+    its range, 2^-100 and 2^100 (f32 operands spanning the scale's
+    codes)."""
+    rng = np.random.default_rng(11)
+    if route == "scalar":
+        a = _f(rng, (4099,), dev, -3e38, 3e38)
+        kw = dict(sa=1.0, sb=1e30, act="none", out_scale=out_scale)
+    else:
+        a = _f(rng, (4099,), dev, -130.0, 130.0)
+        kw = dict(sa=out_scale, sb=out_scale / 2, act="none",
+                  out_scale=out_scale)
+    b = _q(rng, (4099,), dev)
+    _check(misc_pe.misc_add(a, b, **kw), misc_pe.misc_add_plain(a, b, **kw))
+    assert plans[-1].route == route
+
+
+def test_misc_add_refuses_a_plan_it_has_not_built(dev):
+    """The kernel refuses a plan it has no instantiation for (16-element
+    groups with an f32 operand, 8-element ones) rather than launch it."""
+    a, b = torch.zeros(64, device=dev), torch.zeros(64, device=dev)
+    planned = misc_pe.plan_add
+    for bad in (misc_pe.PlanAdd("vec", 16, 1, 1),
+                misc_pe.PlanAdd("vec", 8, 1, 1)):
+        misc_pe.plan_add = lambda *args, _p=bad: _p
+        try:
+            with pytest.raises(RuntimeError):
+                misc_pe.misc_add(a, b)
+        finally:
+            misc_pe.plan_add = planned
+
+
+# every window instantiation (k 2 / 3 / 5 / 7) and the run-time one (k 4,
+# 6), strides 1 / 2 / 3, C 3 / 11 / 256 / 2048, odd H and W, windows equal
+# to the map
+@pytest.mark.parametrize("shape,window,stride", [
+    ((2, 9, 11, 3), 2, 1), ((2, 11, 13, 11), 3, 3), ((2, 13, 9, 256), 5, 2),
+    ((3, 7, 7, 256), 7, 1), ((1, 9, 9, 2048), 4, 1), ((2, 6, 6, 12), 6, 1),
+    ((2, 15, 17, 2048), 3, 2), ((1, 5, 5, 11), 5, 1), ((4, 8, 8, 256), 2, 2)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_avgpool2d_windows(dev, plans, shape, window, stride, dtype):
+    rng = np.random.default_rng(window * 100 + shape[-1])
+    x = (_q(rng, shape, dev) if dtype == torch.int8
+         else _f(rng, shape, dev, -3.0, 3.0))
+    _check(misc_pe.avgpool2d(x, window, stride),
+           misc_pe.avgpool2d_plain(x, window, stride))
+    p = plans[-1]
+    assert p.kt == (window if window in misc_pe.POOL_KS else 0)
+    assert p.lanes == 1 or shape[-1] % 4 == 0
+    assert p == misc_pe.plan_avgpool(*shape, window, stride, 16,
+                                     dtype == torch.float32)
+    planned = misc_pe.plan_avgpool
+    outputs = misc_pe.avgpool2d_plain(x, window, stride).numel()
+    for lanes in ((1, 4) if shape[-1] % 4 == 0 else (1,)):
+        for block in misc_pe.POOL_BLOCKS:
+            forced = misc_pe.pool_launch(outputs, lanes, window, block)
+            misc_pe.plan_avgpool = lambda *args, _p=forced: _p
+            try:
+                _check(misc_pe.avgpool2d(x, window, stride),
+                       misc_pe.avgpool2d_plain(x, window, stride))
+            finally:
+                misc_pe.plan_avgpool = planned
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1),
+                                          (torch.int8, 2)])
+def test_avgpool2d_offset_view(dev, plans, dtype, offset):
+    """A map whose first element is off 16 bytes (f32) or 4 (int8): one
+    channel a thread."""
+    rng = np.random.default_rng(offset)
+    shape = (2, 9, 9, 256)
+    flat = (_q(rng, (offset + 2 * 9 * 9 * 256,), dev) if dtype == torch.int8
+            else _f(rng, (offset + 2 * 9 * 9 * 256,), dev, -3.0, 3.0))
+    x = flat[offset:].view(shape)
+    _check(misc_pe.avgpool2d(x, 3, 2), misc_pe.avgpool2d_plain(x, 3, 2))
+    assert plans[-1].lanes == 1 and plans[-1].kt == 3
+
+
 def _w4(rng, dev, m, k, n, gs):
     a = _q(rng, (m, k), dev)
     w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev)

@@ -19,6 +19,8 @@ interpret mode, its `ref.attention` and its `models/layers.flash_attention`
 (the compiled prefill's attention), and to the port's own
 `models/layers.flash_attention`: every path sums in f32, in another order.
 """
+import itertools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -39,7 +41,7 @@ from repro_torch.compiler.graph import Epilogue as TEpilogue
 from repro_torch.core.config import EngineConfig as TEng
 from repro_torch.core.quant import QTensor as TQ
 from repro_torch.kernels import _build, conv_pe, dwc_pe, flash_attn
-from repro_torch.kernels import low_channel
+from repro_torch.kernels import low_channel, misc_pe
 from repro_torch.kernels import ops as t_ops
 from repro_torch.models import layers as TL
 
@@ -363,6 +365,96 @@ def test_dwc2d_plan_zoo():
             if name == "mobilenetv2":
                 mnv2.append(p.run)
     assert mnv2 == MOBILENET_V2_RUNS
+
+
+# the MISC adds the models give the card: ResNet50's unfused residual adds
+# at 224 px in a wave of 4 (int8 + int8 -> int8), gemma2-2b's post-norm
+# adds at a decode step and a 64-token prefill of 4 slots (f32 + int8 ->
+# f32), and lengths around the vector groups
+ADD_LENGTHS = [1, 15, 16, 17, 4095, 4097, 4 * 56 * 56 * 256,
+               4 * 28 * 28 * 512, 4 * 14 * 14 * 1024, 4 * 7 * 7 * 2048,
+               4 * 2304, 256 * 2304, 10 ** 9]
+ADD_KINDS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("a_f32,b_f32", ADD_KINDS)
+@pytest.mark.parametrize("aligned", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("out_scale", [None, 0.0437, 2.0 ** -100, 2.0 ** 100,
+                                       2.0 ** -101, 3e38, 1e-39])
+def test_misc_add_plan_route(a_f32, b_f32, aligned, out_scale):
+    """plan_add (pure Python) takes the vector route only when a, b and
+    out all start on 16 bytes and an int8 out's scale lies in VEC_SCALES
+    (2^-100 to 2^100, where its exact requant holds): 16 elements a group
+    with two int8 operands (a uint4 of codes each), 4 with an f32 one (a
+    float4, a 32-bit word of codes); else the scalar route, one element a
+    thread."""
+    in_range = out_scale is None or 2.0 ** -100 <= out_scale <= 2.0 ** 100
+    for n in ADD_LENGTHS:
+        p = misc_pe.plan_add(n, a_f32, b_f32, out_scale, aligned)
+        if aligned < 16 or not in_range:
+            assert (p.route, p.vec) == ("scalar", 1)
+        else:
+            assert (p.route, p.vec) == ("vec", 4 if a_f32 or b_f32 else 16)
+
+
+@pytest.mark.parametrize("n", ADD_LENGTHS)
+@pytest.mark.parametrize("aligned", [1, 16])
+def test_misc_add_plan_covers_n_once(n, aligned):
+    """The add's grid covers n exactly once: its blocks and grid-stride
+    steps take every whole group (the vector route, one a thread a step)
+    or element (the scalar route), one step fewer would leave some, one
+    block fewer would leave some on the first step; the vector grid fills
+    the card at most once and its n % vec tail fits the first block; the
+    scalar grid keeps its cap."""
+    for (a_f32, b_f32), os in itertools.product(ADD_KINDS, (None, 0.0437)):
+        p = misc_pe.plan_add(n, a_f32, b_f32, os, aligned)
+        units = n // p.vec                       # groups, or elements
+        per_step = p.blocks * misc_pe.ADD_THREADS
+        assert p.steps * per_step >= units > (p.steps - 1) * per_step \
+            or units == p.steps == 0
+        assert p.blocks == 1 or (p.blocks - 1) * misc_pe.ADD_THREADS < units
+        assert n - units * p.vec < min(p.vec, misc_pe.ADD_THREADS) or \
+            p.vec == 1
+        cap = (misc_pe.SCALAR_MAX_BLOCKS if p.route == "scalar"
+               else misc_pe.SMS * misc_pe.ADD_BLOCKS_A_SM)
+        assert 1 <= p.blocks <= cap
+
+
+# avgpool2d's driven shapes (chip_smoke.AVGPOOL) and the card tests' ones
+POOL_SHAPES = [((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1),
+               ((2, 9, 10, 3), 2, 2), ((2, 11, 13, 11), 5, 3),
+               ((1, 9, 9, 256), 4, 1), ((3, 7, 7, 256), 7, 1),
+               ((2, 15, 17, 2048), 3, 2)]
+
+
+@pytest.mark.parametrize("shape,k,stride", POOL_SHAPES)
+@pytest.mark.parametrize("in_f32", [True, False])
+def test_avgpool_plan(shape, k, stride, in_f32):
+    """plan_avgpool (pure Python): four channels a thread only where C %
+    4 == 0, the map starts on 16 bytes (f32) or 4 (int8) and the
+    four-channel grid keeps a block of the smallest size an SM; the
+    window's own instantiation for k in POOL_KS, the run-time one else; a
+    grid that covers every (position, channel group) once; and at the
+    global-like [4, 7, 7, 2048] k 7 one channel a thread in 128 blocks of
+    64 (four would leave 32 blocks for 132 SMs)."""
+    n, h, w, c = shape
+    ho, wo = (h - k) // stride + 1, (w - k) // stride + 1
+    threads_of = {1: n * ho * wo * c, 4: n * ho * wo * c // 4}
+    for aligned in (1, 2, 4, 8, 16):
+        p = misc_pe.plan_avgpool(n, h, w, c, k, stride, aligned, in_f32)
+        ok4 = (c % 4 == 0 and aligned >= (16 if in_f32 else 4)
+               and threads_of[4] >= misc_pe.SMS * misc_pe.POOL_BLOCKS[-1])
+        assert p.lanes == (4 if ok4 else 1)
+        assert p.kt == (k if k in misc_pe.POOL_KS else 0)
+        threads = threads_of[p.lanes]
+        assert (p.blocks - 1) * p.block < threads <= p.blocks * p.block
+        assert p.block in misc_pe.POOL_BLOCKS
+        bigger = [b for b in misc_pe.POOL_BLOCKS if b > p.block]
+        assert all(-(-threads // b) < misc_pe.POOL_MIN_BLOCKS for b in bigger)
+    if shape == (4, 7, 7, 2048):
+        assert p == misc_pe.PlanAvgpool(1, 7, 64, 128)
+    if shape == (4, 56, 56, 256):
+        assert p == misc_pe.PlanAvgpool(4, 3, 256, 729)
 
 
 @pytest.mark.parametrize("name", ["mobilenetv2", "efficientnet"])
