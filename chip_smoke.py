@@ -101,7 +101,25 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      its ids equal to the backend="ref" engine's, the trace 3 times more
      for steady tokens/s and latency, and one profiled prefill and decode
      step;
- 11. qwen2-1.5b trained at full width on the float path (f32 params and
+ 11. recurrentgemma-2b at full width (26 layers: recurrent, recurrent,
+     local -- 18 RG-LRU blocks and 8 local-attention blocks of window 2048;
+     d 2560, lru_width 2560, 10 / 1 heads of 256, d_ff 7680 GeGLU, tied
+     vocab 256000, scaled embeddings), seeded weights, served on the eager
+     path by the falcon-mamba cell's engine and trace: first the int8 Conv
+     PE's tanh-gelu epilogue swept (a zero-A GEMM whose bias holds 2^20
+     values over [-12, 12], +-0, denormals and +-1e30, on every route
+     conv_pe.plan can name, bit for bit the plain version, torch's CUDA
+     F.gelu(approximate="tanh"); the first differing value is printed);
+     then the kernel phases of the causal conv (dwc1d, act none, per
+     prefill, against F.conv1d) and of the int8 Conv PE (every one of the
+     164 products of a decode step and of a prefill held bitwise and timed
+     cold, plans logged; the gelu products -- 18 in_gate, 26 wg -- timed
+     apart), the 8-request trace with the counters zeroed around it (164
+     conv_pe per decode step; 164 conv_pe + 18 dwc1d per prefill; nothing
+     else), its ids equal to the backend="ref" engine's, 1 steady trace,
+     one profiled prefill and decode step; then the reduced model (window
+     64) served on both backends past its ring, ids equal;
+ 12. qwen2-1.5b trained at full width on the float path (f32 params and
      Adam moments, bf16 compute, TrainConfig(lr=3e-4, total_steps=8,
      warmup_steps=1, remat="none"), SyntheticTokens at batch 8 x seq 128):
      every float GEMM (conv_pe_f) product of one step -- 196 forward, 28
@@ -119,7 +137,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      loss and grad_norm within TRAIN_LOSS_TOL / TRAIN_GNORM_TOL of the
      CUDA backend's; then launch.train.main on the reduced model on the
      card with a checkpoint and --resume;
- 12. one JSON line with every kernel's launches, error and times, then the
+ 13. one JSON line with every kernel's launches, error and times, then the
      device line.
 
 It needs one card and no network, and imports only torch, numpy, the
@@ -231,6 +249,17 @@ SSM = dict(arch="falcon-mamba-7b", batch=4, max_seq=128, prefill_len=64,
            trials=3)
 SSM_PER_LAYER = {"decode": {"conv_pe": 4},
                  "prefill": {"conv_pe": 4, "dwc1d": 1}}
+# the recurrentgemma phase: recurrentgemma-2b on the eager path, w8a8,
+# dense, on the SSM cell's engine and trace, with one steady trace (the
+# whole script stays well inside its time limit)
+RG = dict(SSM, arch="recurrentgemma-2b", trials=1)
+# launches per layer kind: a recurrent layer's in_x, in_gate (gelu) and
+# out_proj and its MLP's wg (gelu), wu and wd, and the causal conv (act
+# none) at a prefill; a local layer's wq, wk, wv, wo and its MLP
+RG_PER_KIND = {"recurrent": {"decode": {"conv_pe": 6},
+                             "prefill": {"conv_pe": 6, "dwc1d": 1}},
+               "local": {"decode": {"conv_pe": 7},
+                         "prefill": {"conv_pe": 7}}}
 # the training phase: full-width qwen2-1.5b, AdamW steps on the float path
 TRAIN = dict(arch="qwen2-1.5b", batch=8, seq=128, steps=8, ref_steps=2,
              launcher_steps=4, launcher_ckpt_every=2)
@@ -250,6 +279,14 @@ F_TOL = 1e-5
 # above those, tight enough that a fault in a part of the gradient (a
 # dropped dbias) does not pass.
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 5e-4, 2e-3
+# the tanh-gelu sweep of the int8 Conv PE's epilogue: a zero-A GEMM whose
+# bias holds GELU_SWEEP values over [-12, 12] and GELU_SPECIAL (+-0,
+# denormals, the least normal, +-1e30), held bit for bit against the plain
+# version (torch's CUDA F.gelu(approximate="tanh")) on every route
+GELU_SWEEP = 1 << 20
+GELU_SPECIAL = (0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, 1.1754944e-38,
+                -1.1754944e-38, 1e-20, -1e-20, 1e30, -1e30)
+GELU_K = 256
 # standalone avgpool2d shapes: (x shape, window, stride)
 AVGPOOL = (((4, 56, 56, 256), 3, 2), ((4, 7, 7, 2048), 7, 1))
 SWEEP_HW, SWEEP_BATCH = 64, 2
@@ -763,15 +800,16 @@ def log_plans(label, calls):
     from repro_torch.kernels import conv_pe, dwc_pe, misc_pe
     shapes = {}
     for name in ("conv_pe", "conv_pe_res", "conv_pe_w4", "conv_pe_w4_res"):
-        for args, _ in calls.get(name, ()):
+        for args, kwargs in calls.get(name, ()):
             a, b = args[0], args[1]
             k = a.shape[1]
             gs = k // args[3].shape[0] if "w4" in name else 0
+            gelu = "gelu" in (args[5:6] + (kwargs.get("add_act"),))
             key = (name, a.shape[0], b.shape[1], k, gs,
-                   conv_pe.byte_align(a), conv_pe.byte_align(b))
+                   conv_pe.byte_align(a), conv_pe.byte_align(b), gelu)
             shapes[key] = shapes.get(key, 0) + 1
     paths = {}
-    for (name, m, n, k, gs, aa, ba), count in sorted(shapes.items()):
+    for (name, m, n, k, gs, aa, ba, gelu), count in sorted(shapes.items()):
         if gs:
             p = conv_pe.plan_w4(m, n, k, gs, aa, ba)
             paths[p.route] = paths.get(p.route, 0) + count
@@ -781,10 +819,10 @@ def log_plans(label, calls):
             continue
         p = conv_pe.plan(m, n, k, aa, ba)
         paths[p.path] = paths.get(p.path, 0) + count
-        log(f"plan {label} {name} M={m} N={n} K={k} x{count}: {p.path} "
-            f"tile {p.bm}x{p.bn}, {p.splits} K split(s) of {p.ks}, copies "
-            f"{p.wa}/{p.wb} B, epilogue "
-            f"{'fused' if p.fused else 'pass'}")
+        log(f"plan {label} {name}{' gelu' if gelu else ''} M={m} N={n} "
+            f"K={k} x{count}: {p.path} tile {p.bm}x{p.bn}, {p.splits} K "
+            f"split(s) of {p.ks}, copies {p.wa}/{p.wb} B, epilogue "
+            f"{'fused' if p.fused and not gelu else 'pass'}")
     dwcs = {}
     for args, kwargs in calls.get("dwc", ()):
         x, w, stride = args[0], args[1], args[3]
@@ -1261,15 +1299,29 @@ def n_global(arch) -> int:
     return sum(arch.layer_kind(i) == "global" for i in range(arch.n_layers))
 
 
-def check_lm_counts(label, counts, per_layer, arch, prefills, steps):
-    """Each kernel launched its per-layer count on every layer it serves
-    (GLOBAL_ONLY kernels: the global layers) for every prefill and decode
-    step of the run, and no other kernel launched."""
+def lm_want(per_layer, arch, prefills, steps) -> dict:
+    """The launches of each kernel over `prefills` prefills and `steps`
+    decode steps: `per_layer` {"prefill": {name: launches a layer},
+    "decode": ...} (GLOBAL_ONLY kernels on the global layers alone), or
+    {layer kind: {"prefill": ..., "decode": ...}}."""
     want = {}
     for phase, runs in (("prefill", prefills), ("decode", steps)):
+        if phase not in per_layer:
+            for i in range(arch.n_layers):
+                for name, per in per_layer[arch.layer_kind(i)][phase].items():
+                    want[name] = want.get(name, 0) + per * runs
+            continue
         for name, per in per_layer[phase].items():
             layers = n_global(arch) if name in GLOBAL_ONLY else arch.n_layers
             want[name] = want.get(name, 0) + per * layers * runs
+    return want
+
+
+def check_lm_counts(label, counts, per_layer, arch, prefills, steps):
+    """Each kernel launched its per-layer count (lm_want) on every layer
+    it serves for every prefill and decode step of the run, and no other
+    kernel launched."""
+    want = lm_want(per_layer, arch, prefills, steps)
     for name, n in want.items():
         if n == 0 or counts.get(name, 0) != n:
             fail(f"{label}: {name}: {counts.get(name, 0)} launches over "
@@ -1812,20 +1864,20 @@ def ring_path(torch):
 # The SSM path: falcon-mamba-7b served by ServeEngine on the eager path
 # ---------------------------------------------------------------------------
 
-def ssm_engine(torch, arch, params, backend):
-    """A w8a8 ServeEngine of the SSM path (dense, eager, no calibration);
-    its quantized tree is built outside any clock."""
+def ssm_engine(torch, arch, params, backend, cfg=SSM):
+    """A w8a8 ServeEngine of the eager path (dense, no calibration); its
+    quantized tree is built outside any clock."""
     from repro_torch.core.config import EngineConfig
     from repro_torch.serve.engine import ServeEngine
     t0 = time.perf_counter()
     engine = ServeEngine(
         arch, params, EngineConfig(quant="w8a8", backend=backend),
-        batch_size=SSM["batch"], max_seq=SSM["max_seq"],
-        prefill_len=SSM["prefill_len"], decode_burst=SSM["burst"])
+        batch_size=cfg["batch"], max_seq=cfg["max_seq"],
+        prefill_len=cfg["prefill_len"], decode_burst=cfg["burst"])
     torch.cuda.synchronize()
     if engine.compiled or engine.calib_id is not None:
         fail(f"{arch.name}: expected the eager path without calibration")
-    log(f"ssm engine w8a8/{backend}/dense: quantize "
+    log(f"eager engine {arch.name} w8a8/{backend}/dense: quantize "
         f"{time.perf_counter() - t0:.2f} s, lowering blockers "
         f"{engine.stats()['lowering_blockers']}")
     return engine
@@ -1968,6 +2020,218 @@ def ssm_path(torch, results, add):
         f"({ids.size} tokens)")
     del other, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The recurrentgemma path: RG-LRU blocks and local ring attention, eager
+# ---------------------------------------------------------------------------
+
+def gelu_routes(conv_pe, n):
+    """(route, M, plan) of each route conv_pe.plan can name, forced at K =
+    GELU_K and N = n: weight streaming, one K slice and split, tensor-core
+    tiles of 32, 64 and 128 columns, and split.  gelu runs in the epilogue
+    pass on each (the wrapper unfuses the plans that would fuse it)."""
+    k, P = GELU_K, conv_pe.Plan
+    wa, wb = conv_pe._width(k, 16), conv_pe._width(n, 16)
+    return (("stream", 4, P("stream", 4, 128, 1, k, wa, wb, True)),
+            ("stream split", 4,
+             P("stream", 4, 128, 2, k // 2, wa, wb, False)),
+            ("tiles 32", 8, P("mma", 128, 32, 1, k, wa, wb, True)),
+            ("tiles 64", 8, P("mma", 128, 64, 1, k, wa, wb, True)),
+            ("tiles 128", 8, P("mma", 128, 128, 1, k, wa, wb, False)),
+            ("tiles split", 8, P("mma", 128, 128, 2, k // 2, wa, wb, False)))
+
+
+def gelu_sweep(torch, conv_pe, routes=None):
+    """The tanh-gelu sweep: a zero-A GEMM whose bias holds the sweep
+    values, on each route (gelu_routes, or `routes`), against the plain
+    version bit for bit (int32 patterns).  Returns [(route, values,
+    differing, the first differing value with the kernel's and the plain
+    version's results, or None)]."""
+    vals = torch.cat([torch.linspace(-12.0, 12.0, GELU_SWEEP, device="cuda"),
+                      torch.tensor(GELU_SPECIAL, device="cuda")])
+    n = vals.numel()
+    b = torch.zeros((GELU_K, n), dtype=torch.int8, device="cuda")
+    wsc = torch.full((1, n), 0.01, device="cuda")
+    orig, out = conv_pe.plan, []
+    for route, m, p in routes or gelu_routes(conv_pe, n):
+        a = torch.zeros((m, GELU_K), dtype=torch.int8, device="cuda")
+        asc = torch.full((m, 1), 0.02, device="cuda")
+        conv_pe.plan = lambda *args, _p=p: _p
+        try:
+            got = conv_pe.matmul_int8_fused(a, b, asc, wsc, vals, "gelu")
+        finally:
+            conv_pe.plan = orig
+        want = conv_pe.matmul_int8_fused_plain(a, b, asc, wsc, vals, "gelu")
+        torch.cuda.synchronize()
+        diff = (got.view(torch.int32) != want.view(torch.int32)).any(0)
+        bad, first = int(diff.sum()), None
+        if bad:
+            j = int(torch.nonzero(diff)[0, 0])
+            i = int(torch.nonzero(got[:, j].view(torch.int32)
+                                  != want[:, j].view(torch.int32))[0, 0])
+            first = (float(vals[j]), float(got[i, j]), float(want[i, j]))
+        out.append((route, n, bad, first))
+    return out
+
+
+def log_gelu_sweep(label, rows):
+    for route, n, bad, first in rows:
+        tail = ("" if first is None else
+                f"; first at x = {first[0]!r}: kernel {first[1]!r} "
+                f"({first[1]:.9e}) vs plain {first[2]!r}")
+        log(f"gelu sweep {label} {route}: {n} values, {bad} differ from the "
+            f"plain version (torch F.gelu tanh){tail}")
+
+
+def rg_kernel_phases(torch, engine, prompts):
+    """Every kernel call of one prefill and one decode step (one request
+    per slot, one new token), each held bitwise against its plain version:
+    the causal conv (act none) timed per prefill, the int8 Conv PE's 164
+    products timed per decode step and per prefill, and its gelu products
+    (in_gate, the MLP's wg) timed apart, each with the L2 flushed before
+    every repeat."""
+    from repro_torch.kernels import dwc_pe
+    calls = capture_calls(torch, lambda: engine.generate(
+        prompts[:RG["batch"]], max_new_tokens=1))
+    arch = engine.arch
+    b, plen = RG["batch"], RG["prefill_len"]
+    n_rec = sum(arch.layer_kind(i) == "recurrent"
+                for i in range(arch.n_layers))
+    conv = calls["dwc1d"]
+    if len(conv) != n_rec or any(
+            tuple(a[0].shape) != (b, plen, arch.lru_width)
+            or a[3] != "none" for a, _ in conv):
+        fail(f"dwc1d (recurrentgemma): {len(conv)} calls of shapes "
+             f"{sorted({tuple(a[0].shape) for a, _ in conv})}, want "
+             f"{n_rec} of one prefill's, act none")
+    x, w = conv[0][0][:2]
+    p = dwc_pe.plan_dwc1d(b, plen, arch.lru_width, w.shape[0],
+                          dwc_pe._aligned_rows(x))
+    log(f"plan dwc1d recurrentgemma B={b} L={plen} C={arch.lru_width} "
+        f"k={w.shape[0]} strides {x.stride()} x{len(conv)}: {p.route}, "
+        f"{p.steps} steps a thread, {p.blocks} blocks")
+    with torch.inference_mode():
+        r = kernel_phase(torch, "dwc1d", conv)
+    log_kernel("dwc1d (recurrentgemma, act none, on in_x's output)", r,
+               per="prefill")
+    log_plans("recurrentgemma", calls)
+    per = lm_want(RG_PER_KIND, arch, 1, 0)["conv_pe"]
+    gemm = calls["conv_pe"]
+    steps = (("decode step", [c for c in gemm if c[0][0].shape[0] == b],
+              REPS, REPS),
+             ("prefill", [c for c in gemm if c[0][0].shape[0] == b * plen],
+              5, 2))
+    if any(len(grp) != per for _, grp, _, _ in steps) or len(gemm) != 2 * per:
+        fail(f"conv_pe (recurrentgemma): {len(gemm)} calls, want {per} at "
+             f"M = {b} and {per} at M = {b * plen}")
+    for what, grp, reps, plain_reps in steps:
+        with torch.inference_mode():
+            r = kernel_phase(torch, "conv_pe", grp, reps=reps,
+                             plain_reps=plain_reps, cold=True)
+        log_kernel(f"conv_pe (recurrentgemma, all {len(grp)} products)", r,
+                   per=what)
+        gelus = {}
+        for a, k in grp:
+            if a[5] == "gelu":
+                gelus.setdefault(tuple(a[1].shape), []).append((a, k))
+        for (kk, n), calls_ in sorted(gelus.items()):
+            name = "in_gate" if n == arch.lru_width else "wg"
+            with torch.inference_mode():
+                r = kernel_phase(torch, "conv_pe", calls_, reps=reps,
+                                 plain_reps=plain_reps, cold=True)
+            log_kernel(f"conv_pe gelu (recurrentgemma {name} M="
+                       f"{calls_[0][0][0].shape[0]} K={kk} N={n}, "
+                       f"{len(calls_)} calls)", r, per=what)
+        want = {(arch.d_model, arch.lru_width): n_rec,
+                (arch.d_model, arch.d_ff): arch.n_layers}
+        if {s: len(c) for s, c in gelus.items()} != want:
+            fail(f"conv_pe gelu (recurrentgemma {what}): calls by shape "
+                 f"{ {s: len(c) for s, c in gelus.items()} }, want {want}")
+
+
+def rg_path(torch, results, add):
+    """recurrentgemma-2b at full width on the eager path (phase 11), then
+    the reduced model across a ring wrap."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import conv_pe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    rows = gelu_sweep(torch, conv_pe)
+    log_gelu_sweep("int8 Conv PE", rows)
+    if any(bad for _, _, bad, _ in rows):
+        fail("the int8 Conv PE's gelu differs from its plain version in "
+             "the sweep")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arch = configs.get_arch(RG["arch"])
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaf_tensors(params))
+    log(f"rg {arch.name}: {arch.n_layers} layers ({' / '.join(arch.block_pattern)}"
+        f"), d {arch.d_model}, lru_width {arch.lru_width}, heads "
+        f"{arch.n_heads}/{arch.n_kv_heads} x {arch.head_dim}, local window "
+        f"{arch.local_window}, d_ff {arch.d_ff} {arch.mlp_act}, vocab "
+        f"{arch.vocab_size}: {n} float params in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _, prompts = lm_inputs(arch, RG)
+    label = "recurrentgemma w8a8/cuda/dense"
+    engine = ssm_engine(torch, arch, params, "cuda", RG)
+    rg_kernel_phases(torch, engine, prompts)
+    ids, counts, _ = lm_serve(torch, engine, prompts, label, RG_PER_KIND, RG)
+    add(counts)
+    steady_lm(torch, engine, prompts, label, RG["trials"], RG)
+    log_profile("recurrentgemma", lm_profile(torch, engine, prompts, RG))
+    log(f"recurrentgemma peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    other = ssm_engine(torch, arch, params, "ref", RG)
+    got, _, _ = lm_serve(torch, other, prompts,
+                         "recurrentgemma w8a8/ref/dense", None, RG)
+    if not np.array_equal(got, ids):
+        fail(f"recurrentgemma CUDA ids differ from backend='ref': "
+             f"{int((got != ids).sum())} of {ids.size}")
+    log(f"ids recurrentgemma w8a8: CUDA equal to backend='ref' on the card "
+        f"({ids.size} tokens)")
+    del other, params
+    torch.cuda.empty_cache()
+    rg_ring(torch)
+
+
+def rg_ring(torch):
+    """The reduced recurrentgemma (window 64) served on the CUDA and ref
+    backends with prompts + new tokens past the window, so the local
+    layer's ring wraps; ids equal."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    arch = configs.reduced(configs.get_arch(RG["arch"]))
+    if RING["prefill_len"] + RING["new_tokens"] <= arch.local_window:
+        fail(f"the ring trace does not cross the {arch.local_window}-token "
+             "window")
+    params = init_params(T.lm_schema(arch), torch.Generator().manual_seed(0),
+                         device="cuda")
+    _, prompts = lm_inputs(arch, RING)
+    ids = None
+    for backend in ("cuda", "ref"):
+        engine = ssm_engine(torch, arch, params, backend, RING)
+        got, _, _ = lm_serve(torch, engine, prompts,
+                             f"recurrentgemma reduced w8a8/{backend}/dense",
+                             RG_PER_KIND if backend == "cuda" else None,
+                             RING)
+        if ids is None:
+            ids = got
+        elif not np.array_equal(got, ids):
+            fail(f"recurrentgemma reduced ids across the ring wrap: ref "
+                 f"differs from cuda at {int((got != ids).sum())} of "
+                 f"{ids.size}")
+    log(f"ids recurrentgemma reduced (window {arch.local_window}, positions "
+        f"to {RING['prefill_len'] + RING['new_tokens']}): cuda equal to ref "
+        f"({ids.size} tokens)")
 
 
 # ---------------------------------------------------------------------------
@@ -2446,6 +2710,13 @@ def main() -> int:
     # -- 10. falcon-mamba-7b served on the eager SSM path ----------------------
     t0 = time.perf_counter()
     ssm_path(torch, results, add)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase falcon-mamba-7b {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. recurrentgemma-2b served on the eager path ------------------------
+    t0 = time.perf_counter()
+    rg_path(torch, results, add)
     # the last cold phase: the L2 flush's 128 MB and the int8 Conv PE's
     # scratch go before training measures its peak memory
     from repro_torch.kernels import conv_pe
@@ -2453,15 +2724,15 @@ def main() -> int:
     conv_pe._SCRATCH.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase falcon-mamba-7b {time.perf_counter() - t0:.1f} s")
+    log(f"phase recurrentgemma-2b {time.perf_counter() - t0:.1f} s")
 
-    # -- 11. qwen2-1.5b trained on the float GEMM kernel -----------------------
+    # -- 12. qwen2-1.5b trained on the float GEMM kernel -----------------------
     t0 = time.perf_counter()
     train_path(torch, results, add)
     log(f"phase train qwen2-1.5b {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 12. the result lines --------------------------------------------------
+    # -- 13. the result lines --------------------------------------------------
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

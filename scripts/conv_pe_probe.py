@@ -5,6 +5,7 @@
     python scripts/conv_pe_probe.py --serve [--src OTHER_TREE/src]
     python scripts/conv_pe_probe.py --float [--host]
     python scripts/conv_pe_probe.py --w4 [--parts]
+    python scripts/conv_pe_probe.py --gelu [--parent OTHER_TREE]
 
 Default: for each shape, every candidate plan -- the planner's own, the
 other path where both kernels take the shape, other K splits of the
@@ -65,11 +66,27 @@ stream kernel's weight copies, products, atomics and fold; the tiles'
 products, unpack and fold) and times each on the planned plan at qwen2's
 gate/up and down at M = 4 and 256, cold: where each kernel's time goes.
 
+--gelu: the int8 Conv PE's tanh-gelu epilogue.  chip_smoke's sweep (a
+zero-A GEMM whose bias holds 2^20 values over [-12, 12], +-0, denormals
+and +-1e30) on every route against the plain version, torch's CUDA
+F.gelu(approximate="tanh"), bit for bit; then the same sweep on the
+stream route of variants of csrc/conv_pe.cu whose act4 calls a textual
+copy of epilogue.cuh's gelu_tanh with one step changed (GELU_VARIANTS: the
+FMA written as a rounded multiply and add, a second FMA in the last
+step), so the line that matches torch shows which multiply-adds nvcc
+contracted in torch's kernel.  Then the epilogue's
+cost: gelu against none at recurrentgemma-2b's gelu projections, cold;
+with --parent, the int8 Conv PE of another tree (its csrc/conv_pe.cu
+built beside this one's) against this tree's on the planned plans of the
+LM decode and prefill shapes (act none, f32 out, cold) and the CNN shapes
+(relu6, int8 out, warm), in turns parent, this, this, parent.
+
 Needs one GPU; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import subprocess
@@ -786,6 +803,115 @@ def w4_parts(torch, np, smoke, conv_pe) -> None:
             f"{tag} {t:.4f} ms" for (tag, _), t in zip(cases, times)))
 
 
+# textual edits of epilogue.cuh's gelu_tanh: (what, old, new)
+GELU_VARIANTS = (
+    ("no FMA: x + kKappa * x^3 as a rounded multiply and add",
+     "__fmaf_rn(kKappa, cube, x)", "__fadd_rn(x, __fmul_rn(kKappa, cube))"),
+    ("a second FMA: 0.5x + 0.5x * tanh",
+     "return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));",
+     "const float hx = __fmul_rn(0.5f, x);\n  "
+     "return __fmaf_rn(hx, tanhf(inner), hx);"),
+)
+# recurrentgemma-2b's gelu projections (M, N, K): in_gate, wg at a decode
+# step and a prefill
+GELU_AT = ((4, 2560, 2560), (4, 7680, 2560), (256, 2560, 2560),
+           (256, 7680, 2560))
+
+
+def gelu_variant_edits(_build):
+    """[(what, edits of conv_pe.cu)]: act4's gelu calls gelu_probe, a copy
+    of epilogue.cuh's gelu_tanh with one step changed, defined ahead of
+    act4."""
+    hdr = (_build.CSRC / "epilogue.cuh").read_text()
+    start = hdr.index("__device__ __forceinline__ float gelu_tanh(")
+    body = hdr[start:hdr.index("\n}\n", start) + 3]
+    out = []
+    for what, old, new in GELU_VARIANTS:
+        if body.count(old) != 1:
+            raise SystemExit(f"{old!r} is not in gelu_tanh once")
+        fn = body.replace(old, new).replace("gelu_tanh(", "gelu_probe(")
+        out.append((what, [
+            ("x[q] = gelu_tanh(x[q]);", "x[q] = gelu_probe(x[q]);"),
+            ("template <bool GELU>\n__device__ __forceinline__ void act4(",
+             fn + "\ntemplate <bool GELU>\n"
+             "__device__ __forceinline__ void act4(")]))
+    return out
+
+
+def gelu(torch, np, smoke, conv_pe, parent) -> bool:
+    import kernel_variants
+    from repro_torch.kernels import _build
+    rows = smoke.gelu_sweep(torch, conv_pe)
+    smoke.log_gelu_sweep("this tree", rows)
+    good = all(bad == 0 for _, _, bad, _ in rows)
+    libs = kernel_variants.edited(_build, "conv_pe.cu",
+                                  gelu_variant_edits(_build), "gelu_probe",
+                                  conv_pe._bind)
+    n = smoke.GELU_SWEEP + len(smoke.GELU_SPECIAL)
+    stream = smoke.gelu_routes(conv_pe, n)[:1]
+    for what, lib in libs:
+        with kernel_variants.bound(_build, "conv_pe", lib):
+            smoke.log_gelu_sweep(f"variant [{what}]",
+                                 smoke.gelu_sweep(torch, conv_pe, stream))
+    rng = np.random.default_rng(6)
+    for m, n, k in GELU_AT:
+        a, b, wsc = operands(torch, np, m, n, k, rng)
+        asc = torch.from_numpy(rng.uniform(0.005, 0.05, (m, 1)).astype(
+            np.float32)).cuda()
+        p = conv_pe.plan(m, n, k, conv_pe.byte_align(a),
+                         conv_pe.byte_align(b))
+        times = {}
+        for act in ("none", "gelu", "gelu", "none"):
+            ms = smoke.cuda_ms(torch, lambda: conv_pe.matmul_int8_fused(
+                a, b, asc, wsc, None, act), REPS, cold=True)[0]
+            times.setdefault(act, []).append(ms)
+        log(f"gelu cost M={m} N={n} K={k} ({p.path} {p.bm}x{p.bn}, "
+            f"{p.splits} split(s), {'fused' if p.fused else 'pass'}): none "
+            f"{times['none']} ms, gelu {times['gelu']} ms (cold)")
+    if parent:
+        parent_vs_this(torch, np, smoke, conv_pe, parent)
+    return good
+
+
+def parent_vs_this(torch, np, smoke, conv_pe, parent) -> None:
+    """The int8 Conv PE of `parent` (its csrc/conv_pe.cu, built beside this
+    tree's) against this tree's, at the planned plans of the LM and CNN
+    shapes, in turns parent, this, this, parent."""
+    import kernel_variants
+    from repro_torch.kernels import _build
+    cu = os.path.join(os.path.abspath(parent), "src", "repro_torch", "csrc",
+                      "conv_pe.cu")
+    lib = kernel_variants.finish(*kernel_variants.start(
+        _build, "conv_pe_parent", cu), "the parent's conv_pe.cu")
+    conv_pe._bind(lib)
+    rng = np.random.default_rng(8)
+    shapes = ([(4, n, k, "LM decode") for n, k in DECODE]
+              + [(m, n, k, "LM prefill") for m, n, k in PREFILL]
+              + [(m, n, k, "CNN") for m, n, k in CNN])
+    for m, n, k, what in shapes:
+        a, b, wsc = operands(torch, np, m, n, k, rng)
+        cnn = what == "CNN"
+        asc = (0.0173 if cnn else torch.from_numpy(rng.uniform(
+            0.005, 0.05, (m, 1)).astype(np.float32)).cuda())
+        args = ((a, b, asc, wsc, None, "relu6", 0.0621) if cnn
+                else (a, b, asc, wsc, None, "none"))
+        want = conv_pe.matmul_int8_fused_plain(*args)
+        times = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ctx = (kernel_variants.bound(_build, "conv_pe", lib)
+                   if who == "parent" else contextlib.nullcontext())
+            with ctx:
+                if not torch.equal(conv_pe.matmul_int8_fused(*args), want):
+                    log(f"parent vs this {what} M={m} N={n} K={k}: {who} "
+                        "DIFFERS from the plain version")
+                times[who].append(smoke.cuda_ms(
+                    torch, lambda: conv_pe.matmul_int8_fused(*args), REPS,
+                    cold=not cnn)[0])
+        log(f"parent vs this {what} M={m} N={n} K={k} "
+            f"({'relu6 int8 out, warm' if cnn else 'none f32 out, cold'}): "
+            f"parent {times['parent']} ms, this {times['this']} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--serve", action="store_true",
@@ -800,6 +926,10 @@ def main() -> int:
     ap.add_argument("--parts", action="store_true",
                     help="with --w4: only the int4 GEMM's parts, each cut "
                     "out in turn")
+    ap.add_argument("--gelu", action="store_true",
+                    help="the tanh-gelu epilogue: sweeps, variants, cost")
+    ap.add_argument("--parent", help="with --gelu: time this tree's int8 "
+                    "GEMM against the one of this unpacked tree")
     ap.add_argument("--fixed", action="store_true",
                     help="with --float: only the short products' fixed "
                     "costs")
@@ -822,7 +952,9 @@ def main() -> int:
                        text=True, check=True).stdout.strip())
     log(f"repro_torch from {os.path.dirname(conv_pe.__file__)}")
     _build.build_all()
-    if args.serve:
+    if args.gelu:
+        good = gelu(torch, np, smoke, conv_pe, args.parent)
+    elif args.serve:
         good = serve(torch, np, smoke, conv_pe)
     elif args.w4:
         good = True

@@ -7,7 +7,8 @@ port serves, plus the reduced smoke variants its CPU tests run.
 The CNN zoo lives in configs/cnn_zoo.py.  Archs join the registry with the
 slice that serves them: qwen2-1.5b and gemma2-2b (local ring layers,
 softcaps, post-norms, scaled embeddings) on the compiled programs,
-falcon-mamba-7b on the eager SSM path.
+falcon-mamba-7b and recurrentgemma-2b (RG-LRU blocks and local ring
+attention) on the eager path.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ from typing import Dict, List
 from repro_torch.configs.falcon_mamba_7b import ARCH as FALCON_MAMBA_7B
 from repro_torch.configs.gemma2_2b import ARCH as GEMMA2_2B
 from repro_torch.configs.qwen2_1_5b import ARCH as QWEN2_1_5B
+from repro_torch.configs.recurrentgemma_2b import ARCH as RECURRENTGEMMA_2B
 from repro_torch.core.config import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [QWEN2_1_5B, GEMMA2_2B,
-                                                    FALCON_MAMBA_7B]}
+ARCHS: Dict[str, ArchConfig] = {a.name: a for a in [
+    QWEN2_1_5B, GEMMA2_2B, RECURRENTGEMMA_2B, FALCON_MAMBA_7B]}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -53,5 +55,6 @@ def reduced(arch: ArchConfig) -> ArchConfig:
         local_window=min(arch.local_window, 64),
         n_experts=min(arch.n_experts, 4) if arch.n_experts else 0,
         encoder_layers=min(arch.encoder_layers, 2),
+        lru_width=128 if arch.lru_width else 0,
         max_seq_len=4096,
     )

@@ -1,8 +1,8 @@
 """Configuration dataclasses (the port's copy of repro.core.config).
 
   * ArchConfig           -- an LM architecture (the attention-only dense
-                            archs the engine IR lowers, and the mamba
-                            archs served on the eager path).
+                            archs the engine IR lowers, and the mamba and
+                            RG-LRU hybrid archs served on the eager path).
   * CNNConfig / ConvSpec -- a CNN from the paper's own evaluation zoo.
   * EngineConfig         -- the DPUV4E engine feature set.
   * ShapeConfig          -- a (seq_len, global_batch, kind) input shape.
@@ -18,9 +18,9 @@ mode (with the int4 group size of w4a8), the kernel backend and the
 KV-cache dtype.
 The reference's other fields (XVDPU baseline, MoE dispatch, Pallas
 interpret mode) join with the slices that run them; ArchConfig keeps the
-fields the transformer lowering and the mamba mixer read, and the MoE /
-encoder fields only as far as `lowering_blockers` needs them to refuse an
-arch.
+fields the transformer lowering and the mamba / RG-LRU mixers read, and
+the MoE / encoder fields only as far as `lowering_blockers` needs them to
+refuse an arch.
 """
 from __future__ import annotations
 
@@ -62,10 +62,11 @@ class ArchConfig:
     mlp_gated: bool = True           # False: plain up/act/down
     tie_embeddings: bool = True
 
-    # --- SSM (mamba1) --------------------------------------------------------
+    # --- SSM / hybrid -------------------------------------------------------
     ssm_state: int = 0               # mamba1 d_state
     ssm_expand: int = 2              # mamba d_inner = expand * d_model
     conv_kernel: int = 4             # mamba / RG-LRU temporal conv width
+    lru_width: int = 0               # RG-LRU recurrent width (0 -> d_model)
 
     # --- what the engine IR does not lower (lowering_blockers) --------------
     n_experts: int = 0
@@ -84,6 +85,8 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.family in ("hybrid",) and self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
 
     @property
     def is_moe(self) -> bool:

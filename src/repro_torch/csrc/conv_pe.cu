@@ -40,7 +40,14 @@
 // sum, as the plain version does, and costs ~40 instructions an output
 // with its IEEE division.  Each thread keeps one column and runs four rows
 // side by side, so each option branch is taken once for four independent
-// chains.  Inside a tensor-core kernel only 8-16 warps an SM share a 128 x
+// chains.  Its acts are none, relu, relu6 and tanh-gelu (act4;
+// epilogue.cuh gelu_tanh, torch's CUDA formula with its one FMA:
+// recurrentgemma's in_gate and the GeGLU gates).  gelu runs in the
+// epilogue pass alone, on every route (a plan that would fuse the
+// epilogue leaves its sums in the scratch instead): compiled into the
+// product kernels and the pass, the tanhf branch slowed their relu / none
+// epilogues 2-6% (scripts/conv_pe_probe.py --gelu --parent), so only
+// epilogue_pass<true> holds it.  Inside a tensor-core kernel only 8-16 warps an SM share a 128 x
 // 128 tile's 16,384 outputs, which measured slower than a pass of its own:
 // so the planner fuses the epilogue only into unsplit narrow tiles and the
 // stream kernel; otherwise the product leaves its int32 sums in a scratch
@@ -102,6 +109,7 @@ __device__ __forceinline__ Col col_of(const Epi& e, int n) {
           e.os_vec != nullptr ? e.os_vec[n] : e.os_val};
 }
 
+template <bool GELU>
 __device__ __forceinline__ void act4(float (&x)[4], int act) {
   if (act == ACT_RELU) {
 #pragma unroll
@@ -109,6 +117,9 @@ __device__ __forceinline__ void act4(float (&x)[4], int act) {
   } else if (act == ACT_RELU6) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) x[q] = fminf(fmaxf(x[q], 0.f), 6.f);
+  } else if (GELU && act == ACT_GELU) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = gelu_tanh(x[q]);
   }
 }
 
@@ -117,6 +128,7 @@ __device__ __forceinline__ void act4(float (&x)[4], int act) {
 // the residual tail, the requant -- apply_act / qdq_code's arithmetic, four
 // outputs at a time, so each branch on the options is taken once for four
 // independent chains.
+template <bool GELU>
 __device__ __forceinline__ void store4(const Epi& e, const Col& c,
                                        const int (&acc)[4], const int (&m)[4],
                                        int cnt, int n, int N, void* C) {
@@ -133,7 +145,7 @@ __device__ __forceinline__ void store4(const Epi& e, const Col& c,
 #pragma unroll
     for (int q = 0; q < 4; ++q) x[q] = __fadd_rn(x[q], c.bias);
   }
-  act4(x, e.act);
+  act4<GELU>(x, e.act);
   if (e.res != nullptr) {
     if (e.has_mid) {
 #pragma unroll
@@ -149,7 +161,7 @@ __device__ __forceinline__ void store4(const Epi& e, const Col& c,
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       x[q] = __fadd_rn(x[q], __fmul_rn(r[q], e.res_scale));
-    act4(x, e.add_act);
+    act4<GELU>(x, e.add_act);
   }
   if (e.out_int8) {
 #pragma unroll
@@ -167,9 +179,10 @@ __device__ __forceinline__ void store4(const Epi& e, const Col& c,
 // The epilogue as a pass of its own, on the complete int32 sums the product
 // left in `part` [M, N] (stored, or added by the slices of a split K): many
 // small blocks spread it over every SM.  Block: 128 columns x 8 rows, 4 rows
-// a thread.
+// a thread.  GELU: the instantiation that applies tanh-gelu.
 constexpr int EP_COLS = 128, EP_ROWS = 8;
 
+template <bool GELU>
 __global__ void __launch_bounds__(256)
 epilogue_pass(const int* __restrict__ part, void* __restrict__ C, int M,
                int N, Epi e) {
@@ -184,7 +197,7 @@ epilogue_pass(const int* __restrict__ part, void* __restrict__ C, int M,
     acc[q] = ok ? part[(size_t)m[q] * N + n] : 0;
     cnt += ok;
   }
-  store4(e, col_of(e, n), acc, m, cnt, n, N, C);
+  store4<GELU>(e, col_of(e, n), acc, m, cnt, n, N, C);
 }
 
 // ---------------------------------------------------------------------------
@@ -353,7 +366,7 @@ stream_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   }
   const int cnt = 1 + (r0 + 2 < M);
   if (fused) {
-    store4(e, col_of(e, n), sums, m, cnt, n, N, C);
+    store4<false>(e, col_of(e, n), sums, m, cnt, n, N, C);
     return;
   }
   for (int q = 0; q < cnt; ++q) {
@@ -547,7 +560,7 @@ mma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       cnt += ok;
     }
     if (fused) {
-      store4(e, col, sums, m, cnt, n, N, C);
+      store4<false>(e, col, sums, m, cnt, n, N, C);
     } else if (splits == 1) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -870,7 +883,8 @@ int launch_pool(const int8_t* a, const int8_t* b, void* C, int G, int rows,
 // pointers' alignment).  fused (splits == 1 only): the kernel runs the
 // epilogue; else its int32 sums go to part [M * N] (zeroed here first when
 // splits > 1, where the slices add into it) and epilogue_pass runs it over
-// the card.
+// the card.  gelu (act or add_act) takes unfused plans only: it runs in
+// epilogue_pass<true>.
 // Pointers are device pointers (nullptr for an absent operand); the
 // launches go on `stream`.  Returns cudaErrorInvalidValue for a plan it
 // does not take, else cudaGetLastError(), so the caller sees a refused
@@ -890,6 +904,7 @@ extern "C" int conv_pe_gemm(const void* A, const void* B, void* C, int M,
       static_cast<long long>(ks) * splits < K ||
       static_cast<long long>(ks) * (splits - 1) >= K ||
       (splits > 1 && fused) || (!fused && part == nullptr) ||
+      ((act == ACT_GELU || add_act == ACT_GELU) && fused) ||
       !width_ok(wa, K, A) ||
       !width_ok(wb, N, B))
     return bad;
@@ -925,7 +940,10 @@ extern "C" int conv_pe_gemm(const void* A, const void* B, void* C, int M,
   }
   if (err != 0 || fused) return err;
   const dim3 grid((N + EP_COLS - 1) / EP_COLS, (M + EP_ROWS - 1) / EP_ROWS);
-  epilogue_pass<<<grid, 256, 0, s>>>(p, C, M, N, e);
+  if (act == ACT_GELU || add_act == ACT_GELU)
+    epilogue_pass<true><<<grid, 256, 0, s>>>(p, C, M, N, e);
+  else
+    epilogue_pass<false><<<grid, 256, 0, s>>>(p, C, M, N, e);
   return static_cast<int>(cudaGetLastError());
 }
 

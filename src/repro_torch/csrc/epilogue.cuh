@@ -13,12 +13,36 @@
 
 namespace repro {
 
-enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2 };
+enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_GELU = 3 };
 
+// apply_act takes none / relu / relu6, the acts every kernel on this header
+// applies.  ACT_GELU is the int8 Conv PE's alone (csrc/conv_pe.cu act4):
+// the DWC, MISC, stem and int4 kernels call apply_act inside unrolled
+// loops, where a tanhf would be compiled into every copy, and their
+// wrappers refuse gelu (kernels/_build.py BASIC_ACTS).
 __device__ __forceinline__ float apply_act(float x, int act) {
   if (act == ACT_RELU) return fmaxf(x, 0.f);
   if (act == ACT_RELU6) return fminf(fmaxf(x, 0.f), 6.f);
   return x;
+}
+
+// torch's CUDA F.gelu(x, approximate="tanh") in f32, op for op
+// (aten/src/ATen/native/cuda/GeluKernel.cu):
+//   0.5 * x * (1 + tanh(kBeta * (x + kKappa * x^3))),
+// kBeta = sqrt(2) * 2 / sqrt(pi) * 0.5 rounded to f32, kKappa = 0.044715f.
+// torch's kernel is built with nvcc's default contraction, which fuses
+// `x + kKappa * x_cube` into one FMA; these sources are built with
+// --fmad=false, so that FMA is written out (__fmaf_rn) and every other
+// step is an explicitly rounded multiply or add.  A sweep on the card (a
+// zero-A int8 GEMM whose bias holds 2^20 values over [-12, 12], +-0,
+// denormals and +-1e30: scripts/conv_pe_probe.py --gelu) is bitwise with
+// torch's kernel with this FMA and differs without it.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float kBeta = 0.7978845608028654f;
+  const float kKappa = 0.044715f;
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(kBeta, __fmaf_rn(kKappa, cube, x));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
 }
 
 // clip(round(x / s), -127, 127) as an integer-valued float.

@@ -143,13 +143,19 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
-ACT_CODES = {"none": 0, "relu": 1, "relu6": 2}
+# csrc/epilogue.cuh's Act codes.  Every kernel on that header applies the
+# BASIC_ACTS; tanh-gelu only the int8 Conv PE's GEMM (csrc/conv_pe.cu act4,
+# bitwise with torch's CUDA F.gelu(approximate="tanh")): its wrapper passes
+# GEMM_ACTS, every other wrapper refuses gelu.
+ACT_CODES = {"none": 0, "relu": 1, "relu6": 2, "gelu": 3}
+BASIC_ACTS = ("none", "relu", "relu6")
+GEMM_ACTS = BASIC_ACTS + ("gelu",)
 
 
-def act_code(act: str) -> int:
-    if act not in ACT_CODES:
-        raise ValueError(f"activation {act!r} has no CUDA epilogue "
-                         f"(have {sorted(ACT_CODES)})")
+def act_code(act: str, have=BASIC_ACTS) -> int:
+    if act not in have:
+        raise ValueError(f"activation {act!r} has no CUDA epilogue here "
+                         f"(have {sorted(have)})")
     return ACT_CODES[act]
 
 

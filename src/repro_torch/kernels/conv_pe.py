@@ -272,7 +272,11 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
                       add_act: str = "none") -> torch.Tensor:
     """Fused int8 GEMM.  a_q int8 [M, K]; b_q int8 [K, N]; a_scale a
     Python float (static per-tensor) or f32 [M, 1]; w_scale f32 [1, N] /
-    [N]; bias f32 [N] or None; out_scale None (f32 out), a Python float, or
+    [N]; bias f32 [N] or None; act and add_act none / relu / relu6 /
+    gelu (tanh: bit for bit torch's CUDA F.gelu(approximate="tanh"), the
+    GeGLU gates and recurrentgemma's in_gate; it runs in the epilogue
+    pass, so a plan that would fuse the epilogue runs the pass instead);
+    out_scale None (f32 out), a Python float, or
     an [N]-sized vector (int8 out).  residual [M, N] (int8 with res_scale,
     or f32) selects the residual variant: qdq at mid_scale (static chains),
     + residual * res_scale, add_act, requant.  Runs `plan(M, N, K)`: one
@@ -309,6 +313,8 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
                       dtype=torch.int8 if out_scale is not None
                       else torch.float32)
     p = plan(m, n, k, byte_align(a_q), byte_align(b_q))
+    if "gelu" in (act, add_act):
+        p = p._replace(fused=False)       # gelu runs in the epilogue pass
     stream = _build.stream_ptr(a_q)
     part = None if p.fused else _scratch(a_q, m * n, stream)
     err = _lib().conv_pe_gemm(
@@ -316,12 +322,12 @@ def matmul_int8_fused(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: Scale,
         int(p.path == "mma"), p.bm, p.bn, p.splits, p.ks, p.wa, p.wb,
         int(p.fused), ptr(part), ptr(asc),
         float(a_scale) if asc is None else 0.0, wsc.data_ptr(), ptr(bias),
-        _build.act_code(act), int(out_scale is not None), ptr(os_vec),
-        os_val, ptr(residual),
+        _build.act_code(act, _build.GEMM_ACTS), int(out_scale is not None),
+        ptr(os_vec), os_val, ptr(residual),
         int(residual is not None and residual.dtype == torch.float32),
         float(res_scale), int(mid_scale is not None),
         float(mid_scale) if mid_scale is not None else 1.0,
-        _build.act_code(add_act), stream)
+        _build.act_code(add_act, _build.GEMM_ACTS), stream)
     name = "conv_pe" if residual is None else "conv_pe_res"
     _build.check(err, name)
     _build.count(name)

@@ -1,14 +1,16 @@
 """Transformer building blocks (the port's copy of the pieces of
-repro.models.layers that the compiled LM programs and the float training
-forward call).
+repro.models.layers that the compiled LM programs, the eager serving path
+and the float training forward call).
 
 RMS norm, RoPE, the chunked online-softmax ("flash") attention the prefill
-AttnOps and the training forward run, the single-token decode attention,
-and the attention / MLP parameter schemas and full-sequence layers
-(`attention_apply`, `mlp_apply`), whose projections go through
-ops.linear (on float weights the float Conv PE GEMM on backend="cuda").  As in the reference these are plain tensor code (the
-reference's `layers.flash_attention` is pure JAX, not its Pallas kernel),
-in f32, with the reference's block structure and operation order.  GQA is
+AttnOps, the eager prefill and the training forward run, the single-token
+decode attention, and the attention / MLP parameter schemas and layers
+(`attention_apply`, `attention_kv`, `attention_decode`, `mlp_apply`),
+whose projections go through ops.linear (on float weights the float Conv
+PE GEMM on backend="cuda").  As in the reference these are plain tensor
+code (the reference's `layers.flash_attention` is pure JAX, not its
+Pallas kernel), in f32, with the reference's block structure and
+operation order.  GQA is
 computed in grouped form: q [B, L, Hkv, G, D] against k/v [B, S, Hkv, D].
 """
 from __future__ import annotations
@@ -186,28 +188,68 @@ def attention_schema(arch: ArchConfig) -> dict:
 def attention_apply(p: dict, x: torch.Tensor, arch: ArchConfig,
                     eng: EngineConfig, *, layer_kind: str, cos: torch.Tensor,
                     sin: torch.Tensor, q_offset: int = 0,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (the training forward): separate q / k / v
-    projections with their biases, RoPE, the chunked `flash_attention`
-    (plain torch, differentiable; local layers pass their window, and the
-    arch's logit softcap rides along), the O projection.  Returns
-    [B, L, d]."""
+    """Full-sequence attention (the training forward and the eager
+    prefill): separate q / k / v projections with their biases, RoPE, the
+    chunked `flash_attention` (plain torch, differentiable; local layers
+    pass their window, and the arch's logit softcap rides along), the O
+    projection.  `kv_override`: k / v already projected and rotated
+    (`attention_kv`, which the eager prefill also stores in the cache).
+    Returns [B, L, d]."""
     b, l, _ = x.shape
     nh, nkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
     g = nh // nkv
     q = ops.linear(x, p["wq"], p.get("bq"), "none", eng)
     q = q.reshape(b, l, nkv, g, hd)
+    if kv_override is None:
+        k, v = attention_kv(p, x, arch, eng, cos, sin)
+    else:
+        k, v = kv_override
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+    window = arch.local_window if layer_kind == "local" else 0
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          logit_softcap=arch.attn_softcap, q_offset=q_offset)
+    return ops.linear(out.reshape(b, l, nh * hd), p["wo"], None, "none", eng)
+
+
+def attention_kv(p: dict, x: torch.Tensor, arch: ArchConfig,
+                 eng: EngineConfig, cos, sin
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k / v [B, L, Hkv, D] projected, k rotated (the cache fill)."""
+    b, l, _ = x.shape
+    nkv, hd = arch.n_kv_heads, arch.head_dim
     k = ops.linear(x, p["wk"], p.get("bk"), "none", eng).reshape(b, l, nkv,
                                                                  hd)
     v = ops.linear(x, p["wv"], p.get("bv"), "none", eng).reshape(b, l, nkv,
                                                                  hd)
     if cos is not None:
-        q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def attention_decode(p: dict, x: torch.Tensor, arch: ArchConfig,
+                     eng: EngineConfig, *, layer_kind: str,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, length,
+                     cos, sin, ring: bool = False) -> torch.Tensor:
+    """One token's attention on the eager path: the q projection and
+    RoPE, `decode_attention` against the cache (holding this token's k /
+    v already; `ring` for a local layer's ring buffer), the O projection.
+    x: [B, 1, d]; returns [B, 1, d]."""
+    b = x.shape[0]
+    nh, nkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
+    g = nh // nkv
+    q = ops.linear(x, p["wq"], p.get("bq"), "none", eng).reshape(
+        b, 1, nkv, g, hd)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
     window = arch.local_window if layer_kind == "local" else 0
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          logit_softcap=arch.attn_softcap, q_offset=q_offset)
-    return ops.linear(out.reshape(b, l, nh * hd), p["wo"], None, "none", eng)
+    out = decode_attention(q, k_cache, v_cache, length, window=window,
+                           logit_softcap=arch.attn_softcap, ring=ring)
+    return ops.linear(out.reshape(b, 1, nh * hd), p["wo"], None, "none",
+                      eng)
 
 
 def mlp_schema(arch: ArchConfig) -> dict:

@@ -1,15 +1,17 @@
 """Decoder-only LM: parameter and serving-cache schemas, the KV-cache
-helpers, the eager mamba path and the full-sequence training forward (the
-port's copy of the parts of repro.models.transformer that the LM
-programs, ServeEngine and the trainer call).
+helpers, the eager serving path and the full-sequence forward (the port's
+copy of the parts of repro.models.transformer that the LM programs,
+ServeEngine and the trainer call).
 
 Attention archs ("global" / "local" layers with a dense MLP) serve as
 compiled engine programs (compiler.lower_transformer -> executor) and
 train through the full-sequence `forward`, which runs every ported layer
 kind.  Archs the IR does not lower serve on the reference's eager
-`prefill` / `decode`; of those, mamba layers (falcon-mamba) are ported.
-Recurrent (RG-LRU) layers, MoE and eager-serving attention layers raise
-NotImplementedError naming the slice that brings them.
+`prefill` / `decode`, which run every layer kind: mamba blocks
+(falcon-mamba), RG-LRU "recurrent" blocks and global / local attention
+blocks (recurrentgemma: k / v projected once a layer for the cache and
+the attention, local layers on a ring buffer of the window).  MoE,
+encoder-decoder and modality-frontend archs raise NotImplementedError.
 
 The reference writes the cache with functional JAX scatters whose
 out-of-range indices are dropped (`mode="drop"`, positive sentinels).  A
@@ -34,24 +36,14 @@ from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, is_spec
 
 
+_KINDS = ("global", "local", "mamba", "recurrent")
+
+
 def _ported_kind(arch: ArchConfig, i: int) -> str:
     kind = arch.layer_kind(i)
-    if kind not in ("global", "local", "mamba"):
+    if kind not in _KINDS:
         raise NotImplementedError(
-            f"{arch.name}: layer kind {kind!r} is not ported yet (the RG-LRU "
-            "mixer joins with the recurrentgemma slice)")
-    return kind
-
-
-def _eager_kind(arch: ArchConfig, i: int) -> str:
-    """The layer kind on the eager path, where only mamba is ported."""
-    kind = _ported_kind(arch, i)
-    if kind != "mamba":
-        raise NotImplementedError(
-            f"{arch.name}: eager {kind!r} attention layers are not ported "
-            "yet (the recurrentgemma slice brings local ring attention to "
-            "the eager path; attention archs serve through the compiled "
-            "programs)")
+            f"{arch.name}: layer kind {kind!r} is not ported")
     return kind
 
 
@@ -64,7 +56,7 @@ def check_eager(arch: ArchConfig) -> None:
         raise NotImplementedError(f"{arch.name}: encoder-decoder and "
                                   "modality frontends are not ported")
     for i in range(arch.n_layers):
-        _eager_kind(arch, i)
+        _ported_kind(arch, i)
 
 
 def block_schema(arch: ArchConfig, i: int) -> dict:
@@ -76,9 +68,12 @@ def block_schema(arch: ArchConfig, i: int) -> dict:
     if kind == "mamba":
         s["mixer"] = S.mamba_schema(arch)
         return s
-    s["attn"] = L.attention_schema(arch)
-    if arch.post_norms:
-        s["post_attn_norm"] = ParamSpec((d,), "zeros")
+    if kind == "recurrent":
+        s["mixer"] = S.rglru_schema(arch)
+    else:
+        s["attn"] = L.attention_schema(arch)
+        if arch.post_norms:
+            s["post_attn_norm"] = ParamSpec((d,), "zeros")
     if arch.d_ff > 0:
         s["mlp_norm"] = ParamSpec((d,), "zeros")
         s["mlp"] = L.mlp_schema(arch)
@@ -112,8 +107,9 @@ def _kv_dtype(eng: EngineConfig) -> torch.dtype:
 def cache_schema(arch: ArchConfig, batch: int, max_seq: int,
                  eng: EngineConfig) -> dict:
     """Dense cache schema: per layer k / v [B, S, Hkv, D] (S = the local
-    window for ring layers) or a mamba layer's state (conv bf16
-    [B, k-1, di], ssm f32 [B, di, ds]), plus the position."""
+    window for ring layers), a mamba layer's state (conv bf16 [B, k-1, di],
+    ssm f32 [B, di, ds]) or an RG-LRU layer's (conv bf16 [B, k-1, w], rec
+    f32 [B, w]), plus the position."""
     kv_dt = _kv_dtype(eng)
     nkv, hd = arch.n_kv_heads, arch.head_dim
     per_layer = []
@@ -121,6 +117,10 @@ def cache_schema(arch: ArchConfig, batch: int, max_seq: int,
         kind = _ported_kind(arch, i)
         if kind == "mamba":
             per_layer.append(S.mamba_state_schema(arch, batch,
+                                                  torch.bfloat16))
+            continue
+        if kind == "recurrent":
+            per_layer.append(S.rglru_state_schema(arch, batch,
                                                   torch.bfloat16))
             continue
         s = min(arch.local_window, max_seq) if kind == "local" else max_seq
@@ -154,9 +154,9 @@ def paged_cache_schema(arch: ArchConfig, batch: int, max_seq: int,
     per_layer = []
     for i in range(arch.n_layers):
         kind = _ported_kind(arch, i)
-        if kind == "mamba":
+        if kind in ("mamba", "recurrent"):
             raise ValueError(f"{arch.name}: a paged cache holds attention "
-                             "KV; mamba state stays dense")
+                             f"KV; {kind} state stays dense")
         if kind == "local":
             s = min(arch.local_window, max_seq)
             shape = (batch, s, nkv, hd)
@@ -300,7 +300,7 @@ def _paged_prefill_store(entry: dict, k, v, tables: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The eager path (archs the engine IR does not lower): mamba layers
+# The eager path (archs the engine IR does not lower)
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
@@ -344,8 +344,9 @@ def lm_logits(params: dict, x: torch.Tensor,
 
 def _mlp_half(p: dict, x: torch.Tensor, arch: ArchConfig,
               eng: EngineConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MLP half of an attention block: pre-norm, MLP, post-norm, the
-    residual add.  Returns (x, aux) (aux 0: MoE is not ported)."""
+    """The MLP half of an attention or RG-LRU block: pre-norm, MLP,
+    post-norm, the residual add.  Returns (x, aux) (aux 0: MoE is not
+    ported)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "mlp" not in p:
         return x, aux
@@ -360,17 +361,22 @@ def block_apply(p: dict, x: torch.Tensor, kind: str, arch: ArchConfig,
                 eng: EngineConfig, *, cos=None, sin=None,
                 state: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Tuple[Optional[dict], torch.Tensor]]:
-    """One residual block, full-sequence: a mamba block (with `state`, as
-    prefill runs it), or a "global" / "local" attention block with its
-    post-norms and MLP half.  Returns (x, (new_state, aux))."""
+    """One residual block, full-sequence: a mamba block, an RG-LRU block
+    and its MLP half (each with `state`, as prefill runs them), or a
+    "global" / "local" attention block with its post-norms and MLP half.
+    Returns (x, (new_state, aux))."""
+    hin = L.rms_norm(x, p["norm"], arch.norm_eps)
     if kind == "mamba":
-        h, new_state = S.mamba_apply(
-            p["mixer"], L.rms_norm(x, p["norm"], arch.norm_eps), arch, eng,
-            state=state)
+        h, new_state = S.mamba_apply(p["mixer"], hin, arch, eng, state=state)
         return x + h, (new_state, torch.zeros((), dtype=torch.float32,
                                               device=x.device))
-    h = L.attention_apply(p["attn"], L.rms_norm(x, p["norm"], arch.norm_eps),
-                          arch, eng, layer_kind=kind, cos=cos, sin=sin)
+    if kind == "recurrent":
+        h, new_state = S.rglru_apply(p["mixer"], hin, arch, eng,
+                                     state=state)
+        x, aux = _mlp_half(p, x + h, arch, eng)
+        return x, (new_state, aux)
+    h = L.attention_apply(p["attn"], hin, arch, eng, layer_kind=kind,
+                          cos=cos, sin=sin)
     if arch.post_norms:
         h = L.rms_norm(h, p["post_attn_norm"], arch.norm_eps)
     x, aux = _mlp_half(p, x + h, arch, eng)
@@ -389,8 +395,8 @@ def forward(params: dict, batch: dict, arch: ArchConfig, eng: EngineConfig,
                                                    torch.Tensor]:
     """Full-sequence logits [B, L, V] f32 and the aux loss (0 without MoE);
     with return_hidden, the final-norm hidden states instead of logits.
-    Runs every ported layer kind: mamba, and the global / local attention
-    blocks of the training path.
+    Runs every ported layer kind: mamba, RG-LRU, and the global / local
+    attention blocks of the training path.
 
     remat "block" and "full" both wrap each block in
     torch.utils.checkpoint.checkpoint(use_reentrant=False): the backward
@@ -433,18 +439,38 @@ def prefill(params: dict, cache: dict, batch: dict, arch: ArchConfig,
             eng: EngineConfig, compute_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, dict]:
     """Run the prompt, fill the cache.  Returns (last-token logits
-    [B, 1, V], the new cache)."""
+    [B, 1, V], the new cache).  An attention layer projects k / v once
+    (`attention_kv`) for both its cache and its attention; a local layer
+    stores the last `w` (its ring's size) at ring slots 0..w-1, which
+    decode's slot p % w continues only for prompts of at most w tokens
+    (or a multiple of w), as in the reference."""
     tokens = batch["tokens"]
+    b, l = tokens.shape
     x = embed_tokens(params, tokens, arch, compute_dtype)
+    cos, sin = L.rope_angles(_positions(batch, b, l, tokens.device),
+                             arch.head_dim, arch.rope_theta)
     new_layers = []
     for i, p in enumerate(params["blocks"]):
-        x, (st, _) = block_apply(p, x, _eager_kind(arch, i), arch, eng,
-                                 state=cache["layers"][i])
-        new_layers.append(st)
+        kind = _ported_kind(arch, i)
+        entry = cache["layers"][i]
+        if kind in ("mamba", "recurrent"):
+            x, (st, _) = block_apply(p, x, kind, arch, eng, state=entry)
+            new_layers.append(st)
+            continue
+        hin = L.rms_norm(x, p["norm"], arch.norm_eps)
+        k, v = L.attention_kv(p["attn"], hin, arch, eng, cos, sin)
+        h = L.attention_apply(p["attn"], hin, arch, eng, layer_kind=kind,
+                              cos=cos, sin=sin, kv_override=(k, v))
+        if arch.post_norms:
+            h = L.rms_norm(h, p["post_attn_norm"], arch.norm_eps)
+        x, _ = _mlp_half(p, x + h, arch, eng)
+        if kind == "local":
+            w = entry["k"].shape[1]
+            k, v = k[:, -w:], v[:, -w:]
+        new_layers.append(_kv_store(entry, k, v, 0, eng))
     x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
     logits = lm_logits(params, x[:, -1:], arch)
-    pos = torch.full((), tokens.shape[1], dtype=torch.int32,
-                     device=tokens.device)
+    pos = torch.full((), l, dtype=torch.int32, device=tokens.device)
     return logits, {"layers": new_layers, "pos": pos}
 
 
@@ -453,16 +479,41 @@ def decode(params: dict, cache: dict, tokens: torch.Tensor, arch: ArchConfig,
            ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  tokens: [B, 1].  Returns (logits [B, 1, V], the
     new cache); cache["pos"] is a scalar or a [B] vector of per-slot
-    positions."""
+    positions.  RoPE runs at each slot's position; a local layer writes
+    position p at ring slot p % w, a global one at p."""
+    pos = cache["pos"]
+    b = tokens.shape[0]
     x = embed_tokens(params, tokens, arch, compute_dtype)
+    positions = (pos[:, None] if pos.ndim == 1
+                 else torch.broadcast_to(pos.reshape(1, 1), (b, 1)))
+    cos, sin = L.rope_angles(positions, arch.head_dim, arch.rope_theta)
     new_layers = []
     for i, p in enumerate(params["blocks"]):
-        _eager_kind(arch, i)
+        kind = _ported_kind(arch, i)
+        entry = cache["layers"][i]
         hin = L.rms_norm(x, p["norm"], arch.norm_eps)
-        h, st = S.mamba_decode(p["mixer"], hin, arch, eng,
-                               cache["layers"][i])
-        new_layers.append(st)
-        x = x + h
+        if kind == "mamba":
+            h, st = S.mamba_decode(p["mixer"], hin, arch, eng, entry)
+            new_layers.append(st)
+            x = x + h
+            continue
+        if kind == "recurrent":
+            h, st = S.rglru_decode(p["mixer"], hin, arch, eng, entry)
+            new_layers.append(st)
+        else:
+            k, v = L.attention_kv(p["attn"], hin, arch, eng, cos, sin)
+            ring = kind == "local"
+            idx = pos % entry["k"].shape[1] if ring else pos
+            st = _kv_store(entry, k, v, torch.broadcast_to(idx, (b,)), eng)
+            kc, vc = _kv_read(st, eng)
+            h = L.attention_decode(p["attn"], hin, arch, eng,
+                                   layer_kind=kind, k_cache=kc,
+                                   v_cache=vc, length=pos + 1, cos=cos,
+                                   sin=sin, ring=ring)
+            if arch.post_norms:
+                h = L.rms_norm(h, p["post_attn_norm"], arch.norm_eps)
+            new_layers.append(st)
+        x, _ = _mlp_half(p, x + h, arch, eng)
     x = L.rms_norm(x, params["final_norm"], arch.norm_eps)
     return lm_logits(params, x, arch), {"layers": new_layers,
-                                        "pos": cache["pos"] + 1}
+                                        "pos": pos + 1}

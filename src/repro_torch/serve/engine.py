@@ -27,12 +27,16 @@ and admission gates on free blocks.  Paged decode reads its KV through
 the paged-gather kernel, a pure copy, so its ids equal dense decode's.
 
 An arch the IR does not lower (`compiler.lowering_blockers`; ported:
-mamba, e.g. falcon-mamba-7b) falls back to the reference's eager path:
-`T.prefill` on a fresh cache, merged into the live cache row by row for
-the refilled slots (`_merge`, which casts fresh state to the live cache's
-dtype), and `T.decode` per step.  That path is dense only (paged KV raises
-ValueError, as in the reference) and takes no calibration (no digest is
-hashed when both paths are eager).
+mamba blocks, e.g. falcon-mamba-7b, and RG-LRU blocks with local ring
+attention, e.g. recurrentgemma-2b) falls back to the reference's eager
+path: `T.prefill` on a fresh cache, merged into the live cache row by row
+for the refilled slots (`_merge`, which casts fresh state to the live
+cache's dtype: a mamba layer's {conv, ssm}, an RG-LRU layer's {rec,
+conv}, an attention layer's dense or ring {k, v}), and `T.decode` per
+step.  That path is dense only (paged KV raises ValueError, as in the
+reference) and takes no calibration (no digest is hashed when both paths
+are eager).  MoE, encoder-decoder and modality-frontend archs raise
+NotImplementedError (`T.check_eager`).
 
 The reference jits prefill, decode and the cache merge; the port runs them
 eagerly.  Not ported yet, each raising NotImplementedError: `mesh=`
@@ -120,8 +124,8 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
 
 def _merge(old: dict, new: dict, mask: torch.Tensor) -> dict:
     """Scatter refilled slots' prefill state into the live cache: per-slot
-    row select on every [B, ...] tensor (fresh state cast to the live
-    tensor's dtype), per-slot position."""
+    row select on every [B, ...] tensor of every layer's entry (fresh state
+    cast to the live tensor's dtype), per-slot position."""
     def sel(o, n):
         m = mask.reshape((mask.shape[0],) + (1,) * (o.ndim - 1))
         return torch.where(m, n.to(o.dtype), o)

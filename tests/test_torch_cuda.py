@@ -929,6 +929,140 @@ def test_conv_pe_gemm_per_token_scale(dev, m, k, n, shift):
            conv_pe.matmul_int8_fused_plain(a, b, asc, wsc))
 
 
+# the int8 Conv PE's tanh-gelu epilogue on every route conv_pe.plan can
+# name, forced: weight streaming over one K slice and split, tensor-core
+# tiles of 32, 64 and 128 columns, and split; gelu runs in the epilogue
+# pass on each (the wrapper unfuses the plans that would fuse it);
+# (route, M, K, N, plan fields)
+GELU_PLANS = [("stream", 4, 256, 1000, ("stream", 4, 128, 1, 256)),
+              ("stream split", 3, 512, 1000, ("stream", 4, 128, 2, 256)),
+              ("tiles 32", 50, 320, 67, ("mma", 128, 32, 1, 320)),
+              ("tiles 64", 130, 320, 67, ("mma", 128, 64, 1, 320)),
+              ("tiles 128", 256, 320, 300, ("mma", 128, 128, 1, 320)),
+              ("tiles split", 4, 2560, 2560, ("mma", 128, 128, 6, 448))]
+# recurrentgemma-2b's gelu projections, planned: in_gate (K 2560, N 2560)
+# and the GeGLU gate wg (N 7680) at a decode step (M = 4) and a prefill
+GELU_SERVED = [(4, 2560, 2560), (4, 2560, 7680), (256, 2560, 2560),
+               (256, 2560, 7680)]
+
+
+def _gelu_plan(a, b, fields, fused):
+    m, k = a.shape
+    n = b.shape[1]
+    wa = conv_pe._width(k, conv_pe.byte_align(a))
+    wb = conv_pe._width(n, conv_pe.byte_align(b))
+    return conv_pe.Plan(*fields, wa, wb, fused)
+
+
+@pytest.mark.parametrize("case", GELU_PLANS, ids=[c[0] for c in GELU_PLANS])
+@pytest.mark.parametrize("out_scale", [None, 0.0621])
+def test_conv_pe_gelu_routes(dev, monkeypatch, case, out_scale):
+    """gelu on each route, per-token a_scale and a bias, f32 and int8 out:
+    bit for bit torch's CUDA F.gelu(approximate="tanh") in the plain
+    version, with the epilogue fused where the plan says so."""
+    _, m, k, n, fields = case
+    rng = np.random.default_rng(m + k + n)
+    a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
+    asc, wsc = _f(rng, (m, 1), dev), _f(rng, (1, n), dev, 0.0005, 0.002)
+    bias = _f(rng, (n,), dev, -3.0, 3.0)
+    p = _gelu_plan(a, b, fields, fields[3] == 1 and (
+        fields[0] == "stream" or fields[2] < 128))
+    monkeypatch.setattr(conv_pe, "plan", lambda *args, _p=p: _p)
+    got = conv_pe.matmul_int8_fused(a, b, asc, wsc, bias, "gelu", out_scale)
+    _check(got, conv_pe.matmul_int8_fused_plain(a, b, asc, wsc, bias,
+                                                "gelu", out_scale))
+    # the same plan with relu6: the epilogue fused where the plan says so
+    got = conv_pe.matmul_int8_fused(a, b, asc, wsc, bias, "relu6", out_scale)
+    _check(got, conv_pe.matmul_int8_fused_plain(a, b, asc, wsc, bias,
+                                                "relu6", out_scale))
+
+
+@pytest.mark.parametrize("m,k,n", GELU_SERVED)
+def test_conv_pe_gelu_served_shapes(dev, m, k, n):
+    """recurrentgemma's gelu projections on their planned routes, f32 out
+    (the eager path's), bit for bit the plain version."""
+    rng = np.random.default_rng(m * n)
+    a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
+    asc, wsc = _f(rng, (m, 1), dev), _f(rng, (1, n), dev, 0.0005, 0.002)
+    _check(conv_pe.matmul_int8_fused(a, b, asc, wsc, None, "gelu"),
+           conv_pe.matmul_int8_fused_plain(a, b, asc, wsc, None, "gelu"))
+
+
+def test_conv_pe_gelu_residual_add_act(dev):
+    """gelu as the residual tail's add_act (the same act4), int8 residual
+    with mid_scale, int8 out."""
+    rng = np.random.default_rng(9)
+    m, k, n = 49, 96, 24
+    a, b = _q(rng, (m, k), dev), _q(rng, (k, n), dev)
+    wsc, bias = _f(rng, (1, n), dev), _f(rng, (n,), dev, -1.0, 1.0)
+    kw = dict(out_scale=0.091, residual=_q(rng, (m, n), dev),
+              res_scale=0.047, mid_scale=0.083, add_act="gelu")
+    _check(conv_pe.matmul_int8_fused(a, b, 0.021, wsc, bias, "gelu", **kw),
+           conv_pe.matmul_int8_fused_plain(a, b, 0.021, wsc, bias, "gelu",
+                                           **kw))
+
+
+def test_conv_pe_gelu_sweep(dev, monkeypatch):
+    """A zero-A GEMM whose bias holds 2^16 values over [-12, 12], +-0,
+    denormals, the least normal and +-1e30: the epilogue computes
+    gelu(bias) after each route's product, bit for bit (the int32
+    patterns, so a -0 against a +0 would count) with the plain version."""
+    vals = torch.cat([torch.linspace(-12.0, 12.0, 1 << 16, device=dev),
+                      torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40,
+                                    1.1754944e-38, -1.1754944e-38, 1e-20,
+                                    -1e-20, 1e30, -1e30], device=dev)])
+    n, k = vals.numel(), 256
+    b = torch.zeros((k, n), dtype=torch.int8, device=dev)
+    wsc = torch.full((1, n), 0.01, device=dev)
+    for fields, m in ((("stream", 4, 128, 1, 256), 4),
+                      (("stream", 4, 128, 2, 128), 4),
+                      (("mma", 128, 32, 1, 256), 8),
+                      (("mma", 128, 128, 1, 256), 8),
+                      (("mma", 128, 128, 2, 128), 8)):
+        a = torch.zeros((m, k), dtype=torch.int8, device=dev)
+        asc = torch.full((m, 1), 0.02, device=dev)
+        p = _gelu_plan(a, b, fields, fields[3] == 1 and (
+            fields[0] == "stream" or fields[2] < 128))
+        monkeypatch.setattr(conv_pe, "plan", lambda *args, _p=p: _p)
+        got = conv_pe.matmul_int8_fused(a, b, asc, wsc, vals, "gelu")
+        want = conv_pe.matmul_int8_fused_plain(a, b, asc, wsc, vals, "gelu")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            fields
+
+
+def test_conv_pe_gelu_refuses_a_fused_plan(dev):
+    """The kernel applies gelu in the epilogue pass alone and refuses a
+    plan that fuses the epilogue with gelu as act or add_act."""
+    rng = np.random.default_rng(4)
+    a, b = _q(rng, (4, 256), dev), _q(rng, (256, 64), dev)
+    wsc = _f(rng, (1, 64), dev)
+    out = torch.empty((4, 64), device=dev)
+    for act, add_act in ((3, 0), (0, 3)):
+        err = conv_pe._lib().conv_pe_gemm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), 4, 64, 256, 1, 128,
+            64, 1, 256, 16, 16, 1, None, None, 0.02, wsc.data_ptr(), None,
+            act, 0, None, 1.0, None, 0, 1.0, 0, 1.0, add_act,
+            _build.stream_ptr(a))
+        assert err != 0
+
+
+def test_gelu_refused_off_the_int8_gemm(dev):
+    """Only the int8 Conv PE's GEMM takes gelu; the pooled head, the int4
+    GEMM and the other epilogues refuse it."""
+    rng = np.random.default_rng(2)
+    a, b = _q(rng, (4, 64), dev), _q(rng, (64, 32), dev)
+    wsc = _f(rng, (1, 32), dev)
+    with pytest.raises(ValueError, match="gelu"):
+        conv_pe.matmul_int8_pool(a.reshape(1, 4, 64), b, 0.02, wsc, None,
+                                 "gelu", mid_scale=0.05, out_scale=0.1)
+    q4 = pack_int4(torch.from_numpy(rng.normal(size=(64, 32)).astype(
+        np.float32)).to(dev), 32)
+    with pytest.raises(ValueError, match="gelu"):
+        conv_pe.matmul_int4_fused(a, q4.packed, 0.02, q4.scale, q4.zero,
+                                  None, "gelu")
+
+
 # (B, Hq, Hkv, L, S, D, softcap, causal, dtype): L and S off the 64-key
 # tiles and the 128-key chunk, one chunk and several, GQA and not; every
 # block the planner picks (32, 16 and 8 rows) at every head dim in f32 and

@@ -454,18 +454,21 @@ def test_cuda_backend_on_cpu_launches_nothing(ssm):
 
 
 def test_unported_eager_paths_raise(ssm):
-    """Recurrent layers, MoE and eager attention layers name their later
-    slice; the compiled attention archs are untouched."""
+    """MoE, encoder-decoder and modality-frontend archs and layer kinds the
+    port has no mixer for raise on the eager path; mamba, RG-LRU and
+    global / local attention layers (recurrentgemma) run on it."""
     arch = ssm["arch_t"]
-    for kw in (dict(block_pattern=("mamba", "recurrent")),
-               dict(block_pattern=("mamba", "global")),
-               dict(n_experts=4)):
+    for kw in (dict(n_experts=4), dict(encoder_layers=2),
+               dict(frontend="vision_stub"), dict(mrope=True),
+               dict(block_pattern=("mamba", "cross"))):
         bad = dataclasses.replace(arch, **kw)
         with pytest.raises(NotImplementedError, match="not ported"):
             TT.check_eager(bad)
-    with pytest.raises(NotImplementedError, match="recurrentgemma"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         TT.cache_schema(dataclasses.replace(
-            arch, block_pattern=("recurrent",)), B, MAX_SEQ, ENGS["ref"])
+            arch, block_pattern=("cross",)), B, MAX_SEQ, ENGS["ref"])
+    TT.check_eager(dataclasses.replace(
+        arch, block_pattern=("mamba", "recurrent", "local", "global")))
 
 
 # ---------------------------------------------------------------------------
